@@ -1,0 +1,61 @@
+"""Classic NeRF positional encoding — port of ``xrnerf_tpu/models/embedders/posenc.py``.
+
+Order is ``[x, sin(2^0 x), cos(2^0 x), ..., sin(2^{L-1} x), cos(2^{L-1} x)]``,
+interleaved per frequency, as the JAX version and the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def posenc(x: torch.Tensor, num_freqs: int, include_input: bool = True) -> torch.Tensor:
+    """[..., D] -> [..., D*(include + 2*num_freqs)] with freq bands 2^i."""
+    if num_freqs == 0:
+        return x
+    freqs = 2.0 ** torch.arange(num_freqs, dtype=x.dtype, device=x.device)  # [L]
+    xb = x[..., None, :] * freqs[:, None]  # [..., L, D]
+    enc = torch.stack([torch.sin(xb), torch.cos(xb)], dim=-2)  # [..., L, 2, D]
+    enc = enc.reshape(*x.shape[:-1], -1)
+    if include_input:
+        enc = torch.cat([x, enc], dim=-1)
+    return enc
+
+
+# Degree-7 odd minimax polynomial for sin(θ) on [-π, π]: max abs error
+# 6.6e-4, far below bf16 resolution (eps ≈ 7.8e-3). Same coefficients as
+# the JAX version, so both round the same way.
+_SIN_C = (0.9994499860234528, -0.16583822106984671,
+          0.00799852029939121, -0.00014773645626373042)
+_INV_2PI = 0.15915494309189535
+_TWO_PI = 6.283185307179586
+
+
+def _sin_2pi(t: torch.Tensor) -> torch.Tensor:
+    """sin(2π·t): reduce t to [-0.5, 0.5] with one round-half-to-even
+    (``torch.round`` matches ``jnp.round``) + degree-7 poly."""
+    t = t - torch.round(t)
+    th = t * torch.tensor(_TWO_PI, dtype=t.dtype, device=t.device)
+    t2 = th * th
+    c0, c1, c2, c3 = (torch.tensor(c, dtype=t.dtype, device=t.device) for c in _SIN_C)
+    return th * (c0 + t2 * (c1 + t2 * (c2 + t2 * c3)))
+
+
+def posenc_fast(x: torch.Tensor, num_freqs: int, include_input: bool = True) -> torch.Tensor:
+    """posenc with turn-based range reduction and polynomial sin/cos —
+    bf16-accurate (max abs error ~9e-4 at L=10); feeds the fused bf16 MLP."""
+    if num_freqs == 0:
+        return x
+    turns = 2.0 ** torch.arange(num_freqs, dtype=x.dtype, device=x.device) * torch.tensor(
+        _INV_2PI, dtype=x.dtype, device=x.device
+    )
+    tb = x[..., None, :] * turns[:, None]  # [..., L, D] in turns
+    enc = torch.stack([_sin_2pi(tb), _sin_2pi(tb + 0.25)], dim=-2)
+    enc = enc.reshape(*x.shape[:-1], -1)
+    if include_input:
+        enc = torch.cat([x, enc], dim=-1)
+    return enc
+
+
+def posenc_channels(in_dim: int, num_freqs: int, include_input: bool = True) -> int:
+    return in_dim * ((1 if include_input else 0) + 2 * num_freqs)

@@ -1,0 +1,59 @@
+"""Volume rendering integrator (alpha compositing) — port of
+``xrnerf_tpu/models/renders/volume.py:volume_render``: 1e10 far pad,
+ray-norm scaled dists, density noise, ``1 - alpha + 1e-10`` in the
+exclusive cumprod, clamped disp and white-background compositing. The
+JAX version's ``rgb_padding`` / ``density_activation`` / ``density_bias``
+options have no caller there and are left out; ``mip_volume_render`` is
+not ported yet."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
+    """cumprod shifted right by one with leading 1 (transmittance)."""
+    return torch.cat([torch.ones_like(x[..., :1]), torch.cumprod(x[..., :-1], dim=-1)], dim=-1)
+
+
+def volume_render(
+    raw_rgb: torch.Tensor,  # [N, S, 3] pre-activation
+    raw_sigma: torch.Tensor,  # [N, S] pre-activation
+    z_vals: torch.Tensor,  # [N, S]
+    rays_d: torch.Tensor,  # [N, 3]
+    generator: Optional[torch.Generator] = None,
+    raw_noise_std: float = 0.0,
+    white_bkgd: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Composite raw field outputs into rgb/disp/acc/depth/weights maps."""
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
+    dists = dists * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+
+    rgb = torch.sigmoid(raw_rgb)
+    sigma = raw_sigma
+    if raw_noise_std > 0.0 and generator is not None:
+        noise = torch.randn(sigma.shape, generator=generator, dtype=sigma.dtype, device=sigma.device)
+        sigma = sigma + raw_noise_std * noise
+
+    alpha = 1.0 - torch.exp(-F.relu(sigma) * dists)
+    weights = alpha * exclusive_cumprod(1.0 - alpha + 1e-10)  # [N, S]
+
+    rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
+    depth_map = torch.sum(weights * z_vals, dim=-1)
+    acc_map = torch.sum(weights, dim=-1)
+    disp_map = 1.0 / torch.clamp(depth_map / torch.clamp(acc_map, min=1e-10), min=1e-10)
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - acc_map[..., None])
+
+    return {
+        "rgb": rgb_map,
+        "disp": disp_map,
+        "acc": acc_map,
+        "depth": depth_map,
+        "weights": weights,
+        "alpha": alpha,
+    }
