@@ -16,10 +16,13 @@ torch.set_num_threads(2)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import xrnerf_torch.models.networks.nerf as tnerf  # noqa: E402
+import xrnerf_tpu.models.networks.nerf as jnerf  # noqa: E402
 from xrnerf_tpu.core.renderer import render_image as jrender_image  # noqa: E402
 from xrnerf_tpu.models.networks.nerf import NerfNetwork as JNerfNetwork  # noqa: E402
 from xrnerf_torch import build_dataset, build_network  # noqa: E402
 from xrnerf_torch.core.renderer import render_image  # noqa: E402
+from xrnerf_torch.models.samplers.pdf import sample_pdf as real_sample_pdf  # noqa: E402
 from xrnerf_torch.utils.weights import nerf_state_dict_from_jax  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,30 +62,64 @@ def _pair(fused, seed=0, **kw):
 
 
 def _close_fine(got, want, atol, what):
-    """Fine outputs go through sample_pdf, whose denom<1e-5 step turns
-    last-ulp cdf differences (XLA sums in another order) into a sample
-    moved along a near-empty bin. A few rays may move by up to 50x the
-    coarse tolerance; on average the outputs agree to the coarse one."""
+    """Fine outputs of two independent runs go through sample_pdf, where
+    t = (u - cdf_below) / denom divides by bin masses near the 1e-5 floor:
+    last-ulp cdf differences (XLA sums in another order) move a sample
+    along such a bin. A few rays may move by up to 50x the coarse
+    tolerance; on average the outputs agree to it. Every ray is held to
+    the coarse tolerance when both sides share the samples
+    (``shared_samples``)."""
     err = np.abs(np.asarray(got) - np.asarray(want))
     assert err.max() <= 50 * atol, f"{what}: max abs err {err.max()}"
     assert err.mean() <= atol, f"{what}: mean abs err {err.mean()}"
+
+
+@pytest.fixture
+def shared_samples(monkeypatch):
+    """Record JAX's ``sample_pdf`` outputs call by call (run JAX under
+    ``jax.disable_jit()`` so they are concrete) and make the port's network
+    draw those, in the same order, instead of its own. Its fine pass then
+    runs on exactly JAX's sample positions and is held ray by ray."""
+    recorded = []
+    real = jnerf.sample_pdf
+
+    def record(*args, **kw):
+        z = real(*args, **kw)
+        if not isinstance(z, jax.core.Tracer):  # flax init under jit records nothing
+            recorded.append(np.array(z))
+        return z
+
+    replay = iter(recorded)
+    monkeypatch.setattr(jnerf, "sample_pdf", record)
+    monkeypatch.setattr(tnerf, "sample_pdf", lambda *args, **kw: torch.from_numpy(next(replay)))
+    return recorded
+
+
+def _with_own_samples(fn):
+    """Run the port with its own ``sample_pdf`` inside a ``shared_samples`` test."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tnerf, "sample_pdf", real_sample_pdf)
+        return fn()
 
 
 # Coarse outputs: unfused is float32 on both sides; fused runs bf16 operands
 # on both sides (Pallas interpret mode vs the plain version) summed in other
 # orders, so the fused-MLP tolerance applies.
 @pytest.mark.parametrize("fused,atol", [(False, 1e-4), (True, 8e-3)])
-def test_network_eval_matches_jax(fused, atol, unfused):
+def test_network_eval_matches_jax(fused, atol, unfused, shared_samples):
     jnet, params, net = unfused if not fused else _pair(True)
     b = _batch(200, seed=1)
-    want = _eval(jnet)(params, b)
-    got = net({k: torch.from_numpy(v) for k, v in b.items()}, train=False)
-    assert not got["rgb"].requires_grad
-    for k in ("coarse_rgb", "coarse_acc"):
-        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=atol, rtol=0, err_msg=k)
-    for k in ("rgb", "acc"):
-        _close_fine(got[k].numpy(), want[k], atol, k)
-    _close_fine(got["depth"].numpy(), want["depth"], 10 * atol, "depth")  # scene units, z in [2, 6]
+    with jax.disable_jit():
+        want = jnet.apply({"params": params}, b, rng=None, train=False)
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    got = net(tb, train=False)  # on JAX's samples
+    assert len(shared_samples) == 1 and not got["rgb"].requires_grad
+    tols = dict(coarse_rgb=atol, coarse_acc=atol, rgb=atol, acc=atol, depth=10 * atol)  # depth: z in [2, 6]
+    for k, tol in tols.items():
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=tol, rtol=0, err_msg=k)
+    own = _with_own_samples(lambda: net(tb, train=False))
+    for k in ("rgb", "acc", "depth"):
+        _close_fine(own[k].numpy(), want[k], tols[k], k)
 
 
 def test_eval_field_and_loss_match_jax(unfused):
@@ -116,9 +153,10 @@ def test_train_mode_draws_from_generator():
     assert torch.equal(a, a2) and not torch.allclose(a, c)
 
 
-def test_render_image_matches_jax(synthetic_scene, unfused):
+def test_render_image_matches_jax(synthetic_scene, unfused, shared_samples):
     """Chunk 100 does not divide 24*24 = 576 rays: the last chunk is padded
-    by repeating the last ray, and the pad is dropped."""
+    by repeating the last ray, and the pad is dropped. On JAX's samples,
+    chunk by chunk, every pixel agrees at 1e-4."""
     jnet, params, net = unfused
     ds = build_dataset(dict(type="SceneDataset", datadir=synthetic_scene, testskip=1))
     rays, gt = ds.eval_item(int(ds.i_test[0]))
@@ -127,12 +165,17 @@ def test_render_image_matches_jax(synthetic_scene, unfused):
     def apply_fn(p, batch, rng):
         return jnet.apply({"params": p}, batch, rng=None, train=False)
 
-    want = jrender_image(apply_fn, params, rays, H, W, chunk=100)
+    with jax.disable_jit():
+        want = jrender_image(apply_fn, params, rays, H, W, chunk=100)
     got = render_image(net, rays, H, W, chunk=100)
+    assert len(shared_samples) == 6
     assert set(got) == {"rgb", "disp", "acc"}
     assert got["rgb"].shape == (H, W, 3) and isinstance(got["rgb"], np.ndarray)
     for k in ("rgb", "acc"):
-        _close_fine(got[k], want[k], 1e-4, k)
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), atol=1e-4, rtol=0, err_msg=k)
+    own = _with_own_samples(lambda: render_image(net, rays, H, W, chunk=100))
+    for k in ("rgb", "acc"):
+        _close_fine(own[k], want[k], 1e-4, k)
 
 
 def test_cli_test_only_matches_jax_test_hook(synthetic_scene, tmp_path):

@@ -11,15 +11,13 @@ kernel in a later slice.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from ..registry import HOOKS
 from ..utils.device import resolve_device
 from ..utils.logger import get_logger
-from .hooks import Hook
 from .renderer import render_image as _render_image
 
 
@@ -28,32 +26,18 @@ class Trainer:
         self,
         network: torch.nn.Module,
         dataset,
-        optimizer: Dict[str, Any] | None = None,
         work_dir: str = "./work_dir",
-        max_iters: int = 200000,
-        eval_interval: int = 0,
-        ckpt_interval: int = 10000,
-        log_interval: int = 100,
-        hooks: Optional[List[Hook]] = None,
         seed: int = 0,
         eval_chunk: int = 8192,
         resume_from: Optional[str] = None,
         load_from: Optional[str] = None,
-        ema_decay: float = 0.0,
         device="cuda",
     ):
         self.device = resolve_device(device)
         self.network = network.to(self.device)
         self.dataset = dataset
-        self.optimizer_cfg = dict(optimizer or {})
         self.work_dir = work_dir
-        self.max_iters = max_iters
-        self.eval_interval = eval_interval
-        self.ckpt_interval = ckpt_interval
-        self.log_interval = log_interval
-        self.hooks = list(hooks or [])
         self.eval_chunk = eval_chunk
-        self.ema_decay = ema_decay
         self.logger = get_logger(log_file=f"{work_dir}/log.txt" if work_dir else None)
         self.eval_metrics: Dict[str, Any] = {}
         self.step = 0
@@ -66,16 +50,8 @@ class Trainer:
             self.network.load_state_dict(sd.get("state_dict", sd))
             self.logger.info("loaded weights from %s", load_from)
 
-    @property
-    def eval_params(self) -> Dict[str, torch.Tensor]:
-        return self.network.state_dict()
-
     def render_image(self, rays: Dict[str, np.ndarray], H: int, W: int):
         return _render_image(self.network, rays, H, W, chunk=self.eval_chunk)
 
     def run(self):
         raise NotImplementedError("training is ported in a later slice")
-
-
-def build_hooks(cfgs: Optional[List[Dict[str, Any]]]) -> List[Hook]:
-    return [HOOKS.build(c) for c in (cfgs or [])]

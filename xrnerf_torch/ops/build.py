@@ -8,8 +8,9 @@ no PyTorch header, so it compiles in seconds:
 
 The library is named by a hash of its source (and the shared headers and
 flags), built on first use into ``xrnerf_torch/_build/`` (listed in
-``.gitignore``) and reused while the source is unchanged. Nothing is built
-at import time; the CPU path never builds.
+``.gitignore``) and reused while the source is unchanged. nvcc's output
+(``-Xptxas=-v``: registers and spills) is kept beside it as ``.log``.
+Nothing is built at import time; the CPU path never builds.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -34,21 +35,7 @@ NVCC_FLAGS = [
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def nvcc_path() -> str:
-    for env in ("CUDA_HOME", "CUDA_PATH"):
-        root = os.environ.get(env)
-        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.isfile(default):
-        return default
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
-
-
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
@@ -57,51 +44,22 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    """Start nvcc for ``name`` unless its library exists; returns
-    (library path, temporary output path, Popen or None)."""
-    out = _lib_path(name)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    if out.exists():
-        return out, tmp, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return out, tmp, proc
-
-
-def _finish(name: str, out: Path, tmp: Path, proc) -> Path:
-    """Wait for nvcc, keep its log, and move the library into place."""
-    if proc is None:
-        return out
-    log, _ = proc.communicate()
-    out.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return out
-
-
-def build_all(names: Iterable[str]) -> List[Path]:
-    """Build the given kernels, one nvcc per source, all started together."""
-    names = list(names)
-    started = [(n, *_start(n)) for n in names]
-    return [_finish(*s) for s in started]
-
-
-def build_log(name: str) -> str:
-    """nvcc's output (including ``-Xptxas=-v``) from the last build of ``name``."""
-    log = _lib_path(name).with_suffix(".log")
-    return log.read_text() if log.exists() else ""
-
-
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
-    if name not in _LIBS:
-        (path,) = build_all([name])
-        _LIBS[name] = ctypes.CDLL(str(path))
+    if name in _LIBS:
+        return _LIBS[name]
+    out = lib_path(name)
+    if not out.exists():
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        out.with_suffix(".log").write_text(proc.stdout)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, out)
+    _LIBS[name] = ctypes.CDLL(str(out))
     return _LIBS[name]
-
-
-def all_kernel_sources() -> List[str]:
-    return sorted(p.stem for p in CSRC.glob("*.cu"))

@@ -24,7 +24,8 @@ def parse_args(argv=None):
     p.add_argument("--load_from", default=None, help="weights-only .pt state dict to load")
     p.add_argument("--resume_from", default=None, help="full checkpoint to resume")
     p.add_argument("--work_dir", default=None, help="override cfg.work_dir")
-    p.add_argument("--max_iters", type=int, default=None, help="override cfg.max_iters")
+    p.add_argument("--max_iters", type=int, default=None,
+                   help="override cfg.max_iters (training, ported in a later slice)")
     p.add_argument("--n_model_shards", type=int, default=1, help="model-axis size (multi-GPU is not ported yet)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda", help="where to run")
     return p.parse_args(argv)
@@ -41,17 +42,11 @@ def build_from_config(cfg, args):
     return Trainer(
         network,
         dataset,
-        optimizer=cfg.get("optimizer", {}),
         work_dir=args.work_dir or cfg.get("work_dir", "./work_dir"),
-        max_iters=args.max_iters or cfg.get("max_iters", 200000),
-        eval_interval=cfg.get("eval_interval", 0),
-        ckpt_interval=cfg.get("ckpt_interval", 10000),
-        log_interval=cfg.get("log_interval", 100),
         seed=cfg.get("seed", 0),
         eval_chunk=cfg.get("eval_chunk", 8192),
         resume_from=args.resume_from or cfg.get("resume_from"),
         load_from=args.load_from or cfg.get("load_from"),
-        ema_decay=cfg.get("ema_decay", 0.0),
         device=args.device,
     )
 
