@@ -6,8 +6,9 @@
 Phases, each printed as one JSON line:
 
 1. device  - the card's name and power limit (``nvidia-smi``); TF32 off.
-2. build   - the CUDA kernel ``xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu``
-             built with nvcc.
+2. build   - the CUDA kernels ``xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu``
+             and ``fused_nerf_mlp_bwd.cu``, one nvcc each, started
+             together; ptxas registers and spills.
 3. kernel  - ``fused_nerf_mlp_fwd`` against its plain version on the card
              at width 256 with seeded weights, for N = 1000 (ragged tile),
              1,048,576 (one coarse chunk) and 3,145,728 (one fine chunk),
@@ -23,7 +24,26 @@ Phases, each printed as one JSON line:
              version) must agree at >= 40 dB PSNR.
    A further frame under torch.profiler gives device time by kernel and
    the device's idle share (``profile`` line).
-5. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+5. bwd_kernel - ``fused_nerf_mlp_bwd`` against its plain version at width
+             256 with seeded weights, N = 1000, 262,144 (one coarse train
+             launch) and 786,432 (one fine launch): per leaf (dx, dv, every
+             weight and bias block) cosine > 0.99 and norm ratio 0.93-1.07,
+             the smallest cosine and largest relative error printed; two
+             launches give the same bits; kernel, plain-version and bf16
+             ``F.linear``-chain autograd backward times (median of 7).
+6. train   - ``Trainer.run`` trains the same full-width network (fused,
+             perturb, Adam lr 5e-4 with decay, ``N_rand`` 4096) for 40 steps
+             on the lego camera over an analytic scene (a coloured sphere
+             over white), logging every 10 steps and checkpointing at the
+             end: finite losses, last window below the first, 2 forward and
+             2 backward launches per step, ms/step, rays/s, MLP TFLOP/s;
+             then ``resume_from`` the checkpoint runs to step 42. A further
+             step under torch.profiler (``train_profile`` line).
+7. train_grads - one 256-ray batch (perturb off): the card path's
+             gradients (the kernels) against the CPU path's (the plain
+             versions), same weights, per leaf cosine > 0.97 and norm ratio
+             0.93-1.07.
+8. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 2.
@@ -34,8 +54,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,8 +69,13 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_HBM_BYTES_S = 3.35e12
 MLP_MACS_PER_ROW = 63 * 256 + 7 * 256 * 256 + 63 * 256 + 256 * 257 + 283 * 128 + 128 * 3
 MLP_FLOP_PER_ROW = 2 * MLP_MACS_PER_ROW  # 1,186,816
+BWD_FLOP_PER_ROW = 3 * MLP_FLOP_PER_ROW  # remat + data gradients + weight gradients: 3,560,448
 RTOL, ATOL = 2e-2, 8e-3
+GRAD_COS, GRAD_RATIO = 0.99, (0.93, 1.07)  # tests/test_fused_nerf_mlp.py:73-79
+NET_COS = 0.97  # tests/test_fused_nerf_mlp.py:101-131
 SEED = 0
+BWD_ROWS = (1000, 262_144, 786_432)  # ragged; one coarse and one fine train launch
+TRAIN_STEPS, TRAIN_LOG, N_RAND = 40, 10, 4096  # N_RAND: bench.py's flagship batch
 
 
 def emit(obj) -> None:
@@ -140,19 +167,19 @@ def library_params(packed):
     return {k: t.contiguous() for k, t in p.items()}
 
 
-def profile_frame(render, frame_ms):
-    """One frame under torch.profiler (device activity only): device time by
-    kernel (top 8), the fused kernel's part, and the device's idle share
-    against ``frame_ms``, the unprofiled frame time (the profiler slows the
-    host, so its own wall time overstates idleness)."""
+def profile_device(run, wall_ms, phase):
+    """``run()`` under torch.profiler (device activity only): device time by
+    kernel (top 8), the fused kernels' part, and the device's idle share
+    against ``wall_ms``, the unprofiled time of the same work (the profiler
+    slows the host, so its own wall time overstates idleness)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        render()
+        run()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_wall_ms = (time.perf_counter() - t0) * 1e3
 
     def dev_ms(e):
         return (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)) / 1e3
@@ -160,10 +187,215 @@ def profile_frame(render, frame_ms):
     kernels = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
     by_kernel = sorted(((e.key, dev_ms(e), e.count) for e in kernels if dev_ms(e) > 0), key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in by_kernel)
-    return {"phase": "profile", "profiled_wall_ms": wall_ms, "frame_ms": frame_ms,
-            "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / frame_ms,
-            "fused_mlp_ms": sum(ms for k, ms, _ in by_kernel if "fused_nerf_mlp_fwd" in k),
+    fwd_ms = sum(ms for k, ms, _ in by_kernel if "fused_nerf_mlp_fwd" in k)
+    bwd_ms = sum(ms for k, ms, _ in by_kernel if "fused_nerf_mlp_bwd" in k)
+    return {"phase": phase, "profiled_wall_ms": prof_wall_ms, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "fused_mlp_ms": fwd_ms, "fused_mlp_bwd_ms": bwd_ms,
+            "fused_share_of_busy": (fwd_ms + bwd_ms) / busy_ms if busy_ms else 0.0,
             "top": [{"name": k[:100], "ms": ms, "calls": c} for k, ms, c in by_kernel[:8]]}
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm() + 1e-30))
+
+
+def check_leaves(what, got, want, min_cos, ratio=GRAD_RATIO):
+    """Per leaf: cosine, norm ratio and max abs error over the reference's
+    largest entry; raises outside the bars."""
+    out = {}
+    for name in want:
+        a, b = got[name].float(), want[name].float()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what} {name}: non-finite values")
+        c, r = cosine(a, b), float(a.norm() / (b.norm() + 1e-30))
+        out[name] = {"cos": c, "ratio": r, "rel_err": float((a - b).abs().max() / (b.abs().max() + 1e-30)),
+                     "max_abs_err": float((a - b).abs().max())}
+        if not (c > min_cos and ratio[0] < r < ratio[1]):
+            raise AssertionError(f"{what} {name}: cosine {c} (bar {min_cos}), norm ratio {r} (bar {ratio})")
+    return out
+
+
+class SphereScene:
+    """In-memory training data: rays of the lego camera (800x800, focal
+    1111.11) from the 40 orbit poses, ``N_rand`` random pixels per step;
+    targets computed in numpy from an analytic scene, a sphere of radius 1
+    at the origin coloured by its normal, over a white background."""
+
+    def __init__(self, n_rand, near, far, seed=SEED):
+        from xrnerf_torch.datasets.rays import intrinsics_from_hwf, spherical_render_poses
+
+        self.N_rand, self.near, self.far, self.seed = n_rand, near, far, seed
+        self.H = self.W = 800
+        self.K = intrinsics_from_hwf(self.H, self.W, 0.5 * self.W / math.tan(0.5 * 0.6911112070083618))
+        self.poses = spherical_render_poses(40, phi=-30.0, radius=4.0)
+
+    @staticmethod
+    def colour(o, d):
+        a, b = (d * d).sum(-1), 2 * (o * d).sum(-1)
+        disc = b * b - 4 * a * (o * o).sum(-1) + 4 * a  # radius 1
+        t = (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a)
+        hit = (disc > 0) & (t > 0)
+        normal = o + t[:, None] * d
+        return np.where(hit[:, None], 0.5 + 0.5 * normal, 1.0).astype(np.float32)
+
+    def train_batch(self, step, host_id=0, num_hosts=1):
+        from xrnerf_torch.datasets.rays import get_rays_np
+
+        rng = np.random.RandomState(self.seed + step)
+        rays_o, rays_d = get_rays_np(self.H, self.W, self.K, self.poses[rng.randint(len(self.poses))])
+        idx = rng.choice(self.H * self.W, self.N_rand, replace=False)
+        o, d = rays_o.reshape(-1, 3)[idx], rays_d.reshape(-1, 3)[idx]
+        n = self.N_rand
+        return {"rays_o": o, "rays_d": d, "near": np.full((n, 1), self.near, np.float32),
+                "far": np.full((n, 1), self.far, np.float32), "target": self.colour(o, d)}
+
+
+class WindowLog:
+    """Hook that keeps each logging window's ``last_logs``."""
+
+    def __init__(self):
+        self.windows = []
+
+    def on_run_begin(self, tr): ...
+
+    def on_eval(self, tr, step): ...
+
+    def on_run_end(self, tr): ...
+
+    def after_step(self, tr, step, logs):
+        if step % tr.log_interval == 0:
+            self.windows.append(dict(tr.last_logs, step=step))
+
+
+def bwd_kernel_phase(dev, packed, gen):
+    """The backward kernel against its plain version; returns its rows by N."""
+    from xrnerf_torch.ops.fused_nerf_mlp import fused_nerf_mlp_bwd, fused_nerf_mlp_bwd_ref, unpack_params
+
+    lib_p = {k: t.detach().clone().requires_grad_() for k, t in library_params(packed).items()}
+    rows = {}
+    for n in BWD_ROWS:
+        x = torch.rand((n, 63), generator=gen, device=dev) * 2 - 1
+        x[:, :3] *= 2
+        v = torch.rand((n, 27), generator=gen, device=dev) * 2 - 1
+        g = torch.randn((n, 4), generator=gen, device=dev) / n
+        got = fused_nerf_mlp_bwd(x, v, g, packed)
+        want = fused_nerf_mlp_bwd_ref(x, v, g, packed)
+        torch.cuda.synchronize()
+
+        def leaves(r):
+            d = unpack_params(packed._replace(weights=r[2], biases=r[3]))
+            return {"dx": r[0], "dv": r[1], **d}
+
+        per_leaf = check_leaves(f"bwd N={n}", leaves(got), leaves(want), GRAD_COS)
+        again = fused_nerf_mlp_bwd(x, v, g, packed)
+        if not all(torch.equal(a, b) for a, b in zip(again, got)):
+            raise AssertionError(f"bwd N={n}: a second launch gave other bits")
+        del want, again
+        ms = time_ms(lambda: fused_nerf_mlp_bwd(x, v, g, packed))
+        plain_ms = time_ms(lambda: fused_nerf_mlp_bwd_ref(x, v, g, packed))
+        xg = x.detach().requires_grad_()
+        vg = v.detach().requires_grad_()
+        rgb_l, sig_l = library_mlp(xg, vg, lib_p)
+        inputs = [xg, vg, *lib_p.values()]
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            (rgb_l, sig_l), inputs, (g[:, :3].contiguous(), g[:, 3].contiguous()), retain_graph=True,
+            allow_unused=True))
+        del rgb_l, sig_l, xg, vg
+        flop = n * BWD_FLOP_PER_ROW
+        nbytes = (n * (63 + 27 + 4 + 63 + 27) * 4 + packed.weights.numel() * (2 + 4)
+                  + packed.biases.numel() * (4 + 4))
+        bound_ms = max(flop / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S) * 1e3
+        row = {"phase": "bwd_kernel", "name": "fused_nerf_mlp_bwd", "rows": n,
+               "min_cos": min(r["cos"] for r in per_leaf.values()),
+               "max_abs_err": max(r["max_abs_err"] for r in per_leaf.values()),
+               "deterministic": True, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms,
+               "bound_by": "operations" if flop / H100_BF16_FLOPS >= nbytes / H100_HBM_BYTES_S else "bytes",
+               "tflops": flop / (ms * 1e-3) / 1e12, "roofline_share": bound_ms / ms,
+               "leaves": {k: [round(r["cos"], 6), round(r["ratio"], 5), round(r["rel_err"], 5)]
+                          for k, r in per_leaf.items()}}
+        emit(row)
+        rows[n] = row
+        del x, v, g, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_phase(model_cfg, cfg, work_dir):
+    """The training slice through ``Trainer.run``; returns (its line, the
+    trainer, launches by kernel on its main path)."""
+    from xrnerf_torch import build_network
+    from xrnerf_torch.core.trainer import Trainer
+    from xrnerf_torch.ops.fused_nerf_mlp import fused_nerf_mlp_bwd, fused_nerf_mlp_fwd
+    from xrnerf_torch.utils import checkpoint as ckpt
+
+    ds = SphereScene(N_RAND, cfg["data"]["near"], cfg["data"]["far"])
+    rec = WindowLog()
+
+    def trainer(max_iters, **kw):
+        return Trainer(build_network(model_cfg, device="cuda"), ds, optimizer=cfg["optimizer"],
+                       work_dir=work_dir, max_iters=max_iters, log_interval=TRAIN_LOG,
+                       ckpt_interval=TRAIN_STEPS, seed=SEED, device="cuda", **kw)
+
+    tr = trainer(TRAIN_STEPS, hooks=[rec])
+    fused_nerf_mlp_fwd.launches = fused_nerf_mlp_bwd.launches = 0  # the main path starts here
+    reached = tr.run()
+    torch.cuda.synchronize()
+    launches = {"fused_nerf_mlp_fwd": fused_nerf_mlp_fwd.launches,
+                "fused_nerf_mlp_bwd": fused_nerf_mlp_bwd.launches}  # and ends here
+    if reached != TRAIN_STEPS:
+        raise AssertionError(f"training stopped at step {reached}")
+    for name, got in launches.items():
+        if got != 2 * TRAIN_STEPS:
+            raise AssertionError(f"{name}: {got} launches in {TRAIN_STEPS} steps, expected {2 * TRAIN_STEPS}")
+    losses = [w["loss"] for w in rec.windows]
+    if len(losses) != TRAIN_STEPS // TRAIN_LOG or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"window losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: first window {losses[0]}, last {losses[-1]}")
+    path = ckpt.latest_path(work_dir)
+    if path is None or not path.endswith(f"ckpt_{TRAIN_STEPS}.pt"):
+        raise AssertionError(f"no checkpoint at step {TRAIN_STEPS}: {path}")
+    resumed = trainer(TRAIN_STEPS + 2, resume_from=path)
+    if resumed.start_step != TRAIN_STEPS or resumed.run() != TRAIN_STEPS + 2:
+        raise AssertionError("resume did not continue from the checkpoint to step 42")
+    ms_step = float(np.median([w["ms_per_step"] for w in rec.windows[1:]]))
+    rows = N_RAND * (model_cfg["n_samples"] + model_cfg["n_samples"] + model_cfg["n_importance"])
+    floor_ms = 4 * MLP_FLOP_PER_ROW * rows / H100_BF16_FLOPS * 1e3  # forward 1x + backward 3x
+    line = {"phase": "train", "config": "configs/nerf/nerf_blender.py", "fused": True, "N_rand": N_RAND,
+            "steps": TRAIN_STEPS, "resumed_to": TRAIN_STEPS + 2, "window_losses": losses,
+            "window_ms_per_step": [w["ms_per_step"] for w in rec.windows],
+            "ms_per_step": ms_step, "rays_per_s": N_RAND / (ms_step * 1e-3),
+            "points_per_s": rows / (ms_step * 1e-3), "mlp_rows_per_step": rows,
+            "mlp_tflops_bench_count": 3 * MLP_FLOP_PER_ROW * rows / (ms_step * 1e-3) / 1e12,
+            "mlp_floor_ms": floor_ms, "mlp_floor_share": floor_ms / ms_step,
+            "launches": launches, "launches_per_step": {k: n / TRAIN_STEPS for k, n in launches.items()},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return line, tr, ds, launches
+
+
+def train_grads_phase(model_cfg, net_sd):
+    """One 256-ray batch, perturb off: the card path's gradients against the
+    CPU path's, same weights."""
+    from xrnerf_torch import build_network
+
+    cfg = dict(model_cfg, perturb=False)
+    batch = SphereScene(256, 2.0, 6.0, seed=SEED + 1000).train_batch(0)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        net = build_network(cfg, device=device)
+        net.load_state_dict({k: torch.from_numpy(v) for k, v in net_sd.items()})
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        loss, _ = net.loss(net(b, generator=torch.Generator(device=device).manual_seed(SEED), train=True), b)
+        loss.backward()
+        grads[device] = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+        grads[device + "_loss"] = loss.item()
+    per_leaf = check_leaves("train_grads", grads["cuda"], grads["cpu"], NET_COS)
+    return {"phase": "train_grads", "rays": 256, "loss_card": grads["cuda_loss"], "loss_cpu": grads["cpu_loss"],
+            "min_cos": min(r["cos"] for r in per_leaf.values()),
+            "ratio_range": [min(r["ratio"] for r in per_leaf.values()), max(r["ratio"] for r in per_leaf.values())]}
 
 
 def main() -> int:
@@ -196,12 +428,14 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.load_library("fused_nerf_mlp_fwd")
-    log = build.lib_path("fused_nerf_mlp_fwd").with_suffix(".log")
-    ptxas = [ln.strip() for ln in (log.read_text() if log.exists() else "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "kernels": ["fused_nerf_mlp_fwd"], "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+    names = ["fused_nerf_mlp_fwd", "fused_nerf_mlp_bwd"]
+    build.load_libraries(names)
+    ptxas = {}
+    for name in names:
+        log = build.lib_path(name).with_suffix(".log")
+        ptxas[name] = [ln.strip() for ln in (log.read_text() if log.exists() else "").splitlines()
+                       if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    emit({"phase": "build", "kernels": names, "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
     # 3. kernel against its plain version
     rng = np.random.RandomState(SEED)
@@ -237,6 +471,8 @@ def main() -> int:
         kernel_rows[n] = row
         del x, v, rgb_k, sig_k, rgb_r, sig_r, rgb_l, sig_l
         torch.cuda.empty_cache()
+
+    bwd_rows = bwd_kernel_phase(dev, packed, gen)
 
     # 4. the slice: full-width vanilla NeRF renders an 800x800 novel view
     cfg = load_config(os.path.join(ROOT, "configs", "nerf", "nerf_blender.py"), dataname="lego")
@@ -302,21 +538,39 @@ def main() -> int:
           "crop_psnr_vs_cpu_db": crop_psnr, "cpu_crop_s": cpu_s})
 
     # profiled frame (after the main path's counts were read)
-    emit(profile_frame(lambda: tr.render_image(rays, H, W), ms_frame))
+    emit(profile_device(lambda: tr.render_image(rays, H, W), ms_frame, "profile"))
+    del tr, out
+    torch.cuda.empty_cache()
 
-    # 5. kernels
-    k1 = kernel_rows[1_048_576]
-    emit({"kernels": [{
-        "name": "fused_nerf_mlp_fwd",
-        "route": "cuda",
-        "source": "xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu",
-        "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:150",
-        "launches": main_path_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()),
-        "rows": k1["rows"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
-    }]})
+    # 6. training
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        line, ttr, ds, train_launches = train_phase(model_cfg, cfg, work_dir)
+        emit(line)
+        batch = ttr._put_batch(ds.train_batch(10_000))
+        emit(profile_device(lambda: ttr.train_step(batch, 10_000), line["ms_per_step"], "train_profile"))
+        del ttr, batch
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 7. training gradients, card against CPU
+    emit(train_grads_phase(model_cfg, net_sd))
+
+    # 8. kernels
+    k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
+    keys = ("rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [
+        {"name": "fused_nerf_mlp_fwd", "route": "cuda", "source": "xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu",
+         "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:150",
+         "launches": main_path_launches + train_launches["fused_nerf_mlp_fwd"],
+         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()), **{k: k1[k] for k in keys}},
+        {"name": "fused_nerf_mlp_bwd", "route": "cuda", "source": "xrnerf_torch/csrc/fused_nerf_mlp_bwd.cu",
+         "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:159",
+         "launches": train_launches["fused_nerf_mlp_bwd"],
+         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
+         "min_cos": min(r["min_cos"] for r in bwd_rows.values()), **{k: b1[k] for k in keys}},
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0
 

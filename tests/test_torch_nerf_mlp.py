@@ -5,11 +5,12 @@
 - the fused op's plain version matches the JAX ``fused_nerf_mlp`` (Pallas
   in interpret mode on the CPU) at rtol 2e-2 / atol 8e-3, the tolerances
   of ``tests/test_fused_nerf_mlp.py``;
-- on the card (only), the CUDA kernel matches its plain version.
+- on the card (only), the CUDA kernels, forward and backward, match their
+  plain versions.
 
-JAX is imported inside the tests that compare with it, so the card test
-runs where JAX is not installed:
-``XRNERF_TEST_TPU=1 python -m pytest tests/test_torch_nerf_mlp.py -k cuda``.
+JAX is imported inside the tests that compare with it, so the card tests
+run where JAX is not installed:
+``XRNERF_TEST_TPU=1 python -m pytest tests/test_torch_nerf_mlp.py -m cuda``.
 """
 
 import numpy as np
@@ -20,6 +21,8 @@ torch.set_num_threads(2)
 
 from xrnerf_torch.models.fields.nerf_mlp import NerfMLP  # noqa: E402
 from xrnerf_torch.ops.fused_nerf_mlp import (  # noqa: E402
+    fused_nerf_mlp_bwd,
+    fused_nerf_mlp_bwd_ref,
     fused_nerf_mlp_fwd,
     fused_nerf_mlp_ref,
     pack_params,
@@ -124,7 +127,7 @@ def test_fused_requires_reference_topology():
         NerfMLP(netdepth=4, fused=True)
 
 
-def test_cuda_kernel_matches_plain_version():
+def _cuda_pack():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
     rng = np.random.RandomState(0)
@@ -135,7 +138,12 @@ def test_cuda_kernel_matches_plain_version():
             if p.dim() == 1:
                 p.copy_(torch.from_numpy(0.1 * rng.randn(p.shape[0]).astype(np.float32)))
     sd = {k: t.cuda() for k, t in mlp.state_dict().items()}
-    packed = pack_params(sd, 63, 27)
+    return pack_params(sd, 63, 27)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_version():
+    packed = _cuda_pack()
     for n in (1, 127, 1000, 70001):
         x, v = (torch.from_numpy(a).cuda() for a in _data(n, seed=n))
         before = fused_nerf_mlp_fwd.launches
@@ -145,3 +153,35 @@ def test_cuda_kernel_matches_plain_version():
         ref_rgb, ref_sigma = fused_nerf_mlp_ref(x, v, packed)
         torch.testing.assert_close(rgb, ref_rgb, rtol=RTOL, atol=ATOL)
         torch.testing.assert_close(sigma, ref_sigma, rtol=RTOL, atol=ATOL)
+
+
+def _cos(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm() + 1e-30))
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernel_matches_plain_version():
+    """dx, dv and the weight and bias gradients per leaf: cosine > 0.99 and
+    norm ratio 0.93-1.07 (the JAX package's gradient bars); the weight
+    gradients are the same bits on a second launch."""
+    from xrnerf_torch.ops.fused_nerf_mlp import unpack_params
+
+    packed = _cuda_pack()
+    for n in (1, 127, 1000, 70001):
+        x, v = (torch.from_numpy(a).cuda() for a in _data(n, seed=n))
+        g = torch.from_numpy(np.random.RandomState(n + 1).randn(n, 4).astype(np.float32)).cuda()
+        before = fused_nerf_mlp_bwd.launches
+        got = fused_nerf_mlp_bwd(x, v, g, packed)
+        torch.cuda.synchronize()
+        assert fused_nerf_mlp_bwd.launches == before + 1
+        want = fused_nerf_mlp_bwd_ref(x, v, g, packed)
+        gp = unpack_params(packed._replace(weights=got[2], biases=got[3]))
+        wp = unpack_params(packed._replace(weights=want[2], biases=want[3]))
+        leaves = [("dx", got[0], want[0]), ("dv", got[1], want[1])] + [(k, gp[k], wp[k]) for k in gp]
+        for name, a, b in leaves:
+            assert _cos(a, b) > 0.99, f"N={n} {name}: cos {_cos(a, b)}"
+            ratio = float(a.norm() / b.norm())
+            assert 0.93 < ratio < 1.07, f"N={n} {name}: norm ratio {ratio}"
+        again = fused_nerf_mlp_bwd(x, v, g, packed)
+        assert torch.equal(again[2], got[2]) and torch.equal(again[3], got[3])

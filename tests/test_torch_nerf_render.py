@@ -65,13 +65,19 @@ def _close_fine(got, want, atol, what):
     """Fine outputs of two independent runs go through sample_pdf, where
     t = (u - cdf_below) / denom divides by bin masses near the 1e-5 floor:
     last-ulp cdf differences (XLA sums in another order) move a sample
-    along such a bin. A few rays may move by up to 50x the coarse
-    tolerance; on average the outputs agree to it. Every ray is held to
-    the coarse tolerance when both sides share the samples
-    (``shared_samples``)."""
+    along such a bin. A few rays move by more than the coarse tolerance;
+    on average the outputs agree to it. Measured on the CPU (these tests'
+    inputs): 0-4.3 % of values exceed ``atol`` (2.2-3.0 % for the unfused
+    eval batch, 3.1 % / 4.3 % for the rendered rgb / acc, 0 % fused) and
+    the largest error is 14.3x ``atol``. Bounds: at most 5 % of values
+    above ``atol``, none above 20x, mean within ``atol``, so a localised
+    error cannot hide under the mean. Every ray is held to the coarse
+    tolerance when both sides share the samples (``shared_samples``)."""
     err = np.abs(np.asarray(got) - np.asarray(want))
-    assert err.max() <= 50 * atol, f"{what}: max abs err {err.max()}"
+    assert err.max() <= 20 * atol, f"{what}: max abs err {err.max()}"
     assert err.mean() <= atol, f"{what}: mean abs err {err.mean()}"
+    share = float((err > atol).mean())
+    assert share <= 0.05, f"{what}: {share:.1%} of values above atol {atol}"
 
 
 @pytest.fixture

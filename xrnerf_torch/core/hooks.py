@@ -1,6 +1,7 @@
-"""Hook protocol + the eval hooks — port of ``xrnerf_tpu/core/hooks.py``
-(``TestHook``, ``SaveSpiralHook``, ``ElapsedTimeHook``). Images are written
-only when ``save_img`` is set, and ``imageio`` is imported only then.
+"""Hook protocol + the standard hooks — port of ``xrnerf_tpu/core/hooks.py``
+(``ValidateHook``, ``TestHook``, ``SaveSpiralHook``, ``OccupationHook``,
+``ElapsedTimeHook``, ``ProfileHook``). Images are written only when
+``save_img`` is set, and ``imageio`` is imported only then.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import time
 from typing import TYPE_CHECKING, Dict, List
 
 import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
 
 from ..registry import HOOKS
 from ..utils.logger import get_logger
@@ -28,6 +31,40 @@ class Hook:
     def on_eval(self, tr: "Trainer", step: int) -> None: ...
 
     def on_run_end(self, tr: "Trainer") -> None: ...
+
+
+@HOOKS.register
+class ValidateHook(Hook):
+    """Val PSNR/SSIM at eval slots; with ``save_img`` side-by-side
+    (render | ground truth) pngs in ``<work_dir>/val_<step>/``."""
+
+    def __init__(self, save_img: bool = True, max_images: int = -1):
+        self.save_img = save_img
+        self.max_images = max_images
+
+    def on_eval(self, tr: "Trainer", step: int) -> None:
+        ds = tr.dataset
+        idxs = ds.i_val if len(ds.i_val) else ds.i_test
+        if self.max_images > 0:
+            idxs = idxs[: self.max_images]
+        psnrs, ssims = [], []
+        out_dir = os.path.join(tr.work_dir, f"val_{step}")
+        for n, i in enumerate(idxs):
+            rays, gt = ds.eval_item(int(i))
+            ret = tr.render_image(rays, gt.shape[0], gt.shape[1])
+            psnrs.append(float(psnr(ret["rgb"], gt)))
+            ssims.append(float(ssim(ret["rgb"], gt)))
+            if self.save_img:
+                import imageio.v2 as imageio
+
+                os.makedirs(out_dir, exist_ok=True)
+                side = np.concatenate([to8b(ret["rgb"]), to8b(gt)], axis=1)
+                imageio.imwrite(os.path.join(out_dir, f"val_{n}.png"), side)
+        get_logger().info(
+            "[eval %d] val PSNR %.3f SSIM %.4f (%d imgs)",
+            step, float(np.mean(psnrs)), float(np.mean(ssims)), len(idxs),
+        )
+        tr.eval_metrics = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
 
 
 @HOOKS.register
@@ -120,3 +157,56 @@ class ElapsedTimeHook(Hook):
             times = times[1:]  # drop warmup
         get_logger().info("[eval %d] render %.1f ms/frame", step, float(np.mean(times)))
         tr.eval_metrics = {**getattr(tr, "eval_metrics", {}), "ms_per_frame": float(np.mean(times))}
+
+
+@HOOKS.register
+class OccupationHook(Hook):
+    """Cooperative kill switch: stop when ``<work_dir>/<marker>`` is removed."""
+
+    def __init__(self, marker: str = "delete_me_to_stop"):
+        self.marker = marker
+
+    def on_run_begin(self, tr: "Trainer") -> None:
+        os.makedirs(os.path.join(tr.work_dir, self.marker), exist_ok=True)
+
+    def after_step(self, tr: "Trainer", step: int, logs) -> None:
+        if not os.path.isdir(os.path.join(tr.work_dir, self.marker)):
+            get_logger().info("kill-switch dir removed; stopping at step %d", step)
+            tr.request_stop()
+
+
+@HOOKS.register
+class ProfileHook(Hook):
+    """``torch.profiler`` over steps ``start_step + 1 .. start_step +
+    num_steps`` (CPU activity, and the card's where the network runs on
+    one); a Chrome trace goes to ``<work_dir>/profile`` (or ``logdir``)."""
+
+    def __init__(self, start_step: int = 50, num_steps: int = 5, logdir: str = ""):
+        self.start_step = start_step
+        self.num_steps = num_steps
+        self.logdir = logdir
+        self._prof = None
+
+    def after_step(self, tr: "Trainer", step: int, logs) -> None:
+        if step == self.start_step and self._prof is None:
+            acts = [ProfilerActivity.CPU]
+            if tr.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.__enter__()
+        elif self._prof is not None and step >= self.start_step + self.num_steps:
+            self._stop(tr, step)
+
+    def _stop(self, tr: "Trainer", step: int) -> None:
+        if tr.device.type == "cuda":
+            torch.cuda.synchronize(tr.device)
+        self._prof.__exit__(None, None, None)
+        logdir = self.logdir or os.path.join(tr.work_dir, "profile")
+        os.makedirs(logdir, exist_ok=True)
+        self._prof.export_chrome_trace(os.path.join(logdir, f"trace_{self.start_step}_{step}.json"))
+        self._prof = None
+        get_logger().info("[profile] trace for steps %d-%d written to %s", self.start_step, step, logdir)
+
+    def on_run_end(self, tr: "Trainer") -> None:
+        if self._prof is not None:
+            self._stop(tr, tr.step)

@@ -1,24 +1,94 @@
-"""Trainer — the serving half of ``xrnerf_tpu/core/trainer.py:Trainer``.
+"""Trainer — port of ``xrnerf_tpu/core/trainer.py``: iteration-based
+training with logging windows, hooks, EMA and checkpoints, and full-image
+rendering for the eval hooks.
 
 Construction places the network on ``device`` (the card by default;
 raises without one unless ``device="cpu"``), initialises its parameters
-from ``seed`` with flax's distributions, and optionally loads a ``.pt``
-state dict written by the port (``load_from``). ``render_image`` renders
-full images through the chunked renderer. Training (``run``, the
-optimizer, the LR schedule, EMA and resume) comes with the backward
-kernel in a later slice.
+from ``seed`` with flax's distributions, builds the optimizer and learning
+rate schedule (same values per step as the JAX package's optax chain), and
+optionally resumes a checkpoint (``resume_from``: step, model, optimizer,
+scheduler, EMA) or loads a ``.pt`` state dict (``load_from``).
+
+Each step draws its randomness from a generator on the network's device
+seeded from ``(seed, step)``, so a resumed run takes the steps a straight
+run would. The mesh, ``init_aux``/``update_aux``, ``trainable_filter`` and
+``param_loss`` protocols of the JAX trainer (NGP, KiloNeRF, AniNeRF,
+multi-GPU) come with those slices.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import copy
+import math
+import time
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..registry import HOOKS
+from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.logger import get_logger
+from .hooks import Hook
+from .prefetch import BatchPrefetcher
 from .renderer import render_image as _render_image
+
+
+def build_lr_schedule(cfg: Dict[str, Any]) -> Callable[[int], float]:
+    """lr at each step (``xrnerf_tpu/core/trainer.py:build_lr_schedule``):
+    NeRF exponential decay ``lr * rate^(step / decay_steps)``, the mip-NeRF
+    log-lerp to ``lr_final`` with delayed sine warmup, or constant."""
+    lr = float(cfg.get("lr", 5e-4))
+    decay_steps = int(cfg.get("lr_decay_steps", 0))
+    decay_rate = float(cfg.get("lr_decay_rate", 0.1))
+    lr_final = cfg.get("lr_final")
+    warmup = int(cfg.get("lr_warmup_steps", 0))
+    max_steps = int(cfg.get("max_steps", decay_steps or 1))
+
+    if lr_final is not None:
+        lr_final = float(lr_final)
+        delay_mult = float(cfg.get("lr_delay_mult", 0.01))
+
+        def mip(step: int) -> float:
+            delay = 1.0
+            if warmup > 0:
+                delay = delay_mult + (1 - delay_mult) * math.sin(0.5 * math.pi * min(max(step / warmup, 0.0), 1.0))
+            t = min(max(step / max_steps, 0.0), 1.0)
+            return delay * math.exp(math.log(lr) * (1 - t) + math.log(lr_final) * t)
+
+        return mip
+    if decay_steps > 0:
+        return lambda step: lr * decay_rate ** (step / decay_steps)
+    return lambda step: lr
+
+
+def build_optimizer(params, cfg: Dict[str, Any]):
+    """(optimizer, LambdaLR scheduler, grad_clip or None) for the JAX
+    package's ``build_optimizer`` config: ``adam`` (beta1, beta2, eps),
+    ``adamw`` (weight_decay, default 1e-2), ``sgd`` (momentum, default 0.9);
+    ``grad_clip`` is a global-norm clip applied before the step."""
+    cfg = dict(cfg or {})
+    opt_type = cfg.get("type", "adam").lower()
+    sched = build_lr_schedule(cfg)
+    lr = sched(0) or 1.0  # LambdaLR scales the base lr by sched(step) / lr
+    if opt_type == "adam":
+        betas = (float(cfg.get("beta1", 0.9)), float(cfg.get("beta2", 0.999)))
+        opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=float(cfg.get("eps", 1e-8)))
+    elif opt_type == "adamw":
+        opt = torch.optim.AdamW(params, lr=lr, weight_decay=float(cfg.get("weight_decay", 1e-2)))
+    elif opt_type == "sgd":
+        opt = torch.optim.SGD(params, lr=lr, momentum=float(cfg.get("momentum", 0.9)))
+    else:
+        raise ValueError(f"unknown optimizer {opt_type!r}")
+    scheduler = torch.optim.lr_scheduler.LambdaLR(opt, lambda step: sched(step) / lr)
+    clip = cfg.get("grad_clip")
+    return opt, scheduler, (float(clip) if clip else None)
+
+
+def step_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
+    """The step's random stream (the JAX trainer's ``fold_in(base, step)``)."""
+    return torch.Generator(device=device).manual_seed(seed * 2**32 + step)
 
 
 class Trainer:
@@ -26,32 +96,169 @@ class Trainer:
         self,
         network: torch.nn.Module,
         dataset,
+        optimizer: Optional[Dict[str, Any]] = None,
         work_dir: str = "./work_dir",
+        max_iters: int = 200000,
+        eval_interval: int = 0,
+        ckpt_interval: int = 10000,
+        log_interval: int = 100,
+        hooks: Optional[List[Hook]] = None,
         seed: int = 0,
         eval_chunk: int = 8192,
         resume_from: Optional[str] = None,
         load_from: Optional[str] = None,
+        ema_decay: float = 0.0,
         device="cuda",
     ):
         self.device = resolve_device(device)
         self.network = network.to(self.device)
         self.dataset = dataset
         self.work_dir = work_dir
+        self.max_iters = max_iters
+        self.eval_interval = eval_interval
+        self.ckpt_interval = ckpt_interval
+        self.log_interval = log_interval
+        self.hooks = list(hooks or [])
+        self.seed = seed
         self.eval_chunk = eval_chunk
+        self.ema_decay = ema_decay
         self.logger = get_logger(log_file=f"{work_dir}/log.txt" if work_dir else None)
         self.eval_metrics: Dict[str, Any] = {}
-        self.step = 0
+        self.last_logs: Dict[str, float] = {}
+        self._stop = False
+
+        self.network.reset_parameters(torch.Generator().manual_seed(seed))
+        opt_cfg = dict(optimizer or {})
+        opt_cfg.setdefault("max_steps", max_iters)
+        self.optimizer, self.scheduler, self.grad_clip = build_optimizer(self.network.parameters(), opt_cfg)
+        self.start_step = 0
 
         if resume_from:
-            raise NotImplementedError("resume is ported with training in a later slice")
-        self.network.reset_parameters(torch.Generator().manual_seed(seed))
-        if load_from:
+            state = ckpt.load(resume_from, map_location=self.device)
+            self.network.load_state_dict(state["model"])
+            self.optimizer.load_state_dict(state["optimizer"])
+            self.scheduler.load_state_dict(state["scheduler"])
+            self.start_step = int(state["step"])
+            self.logger.info("resumed from %s at step %d", resume_from, self.start_step)
+        elif load_from:
             sd = torch.load(load_from, map_location=self.device, weights_only=True)
             self.network.load_state_dict(sd.get("state_dict", sd))
             self.logger.info("loaded weights from %s", load_from)
+        self.step = self.start_step
+
+        # EMA of the parameters in a second network, which eval renders with
+        self.ema_network = None
+        if ema_decay > 0:
+            self.ema_network = copy.deepcopy(self.network).requires_grad_(False)
+            if resume_from and state.get("ema") is not None:
+                self.ema_network.load_state_dict(state["ema"])
+
+    # ------------------------------------------------------------------
+    def request_stop(self):
+        self._stop = True
+
+    @property
+    def eval_network(self) -> torch.nn.Module:
+        return self.ema_network if self.ema_network is not None else self.network
+
+    @property
+    def eval_params(self) -> Dict[str, torch.Tensor]:
+        return self.eval_network.state_dict()
 
     def render_image(self, rays: Dict[str, np.ndarray], H: int, W: int):
-        return _render_image(self.network, rays, H, W, chunk=self.eval_chunk)
+        return _render_image(self.eval_network, rays, H, W, chunk=self.eval_chunk)
 
-    def run(self):
-        raise NotImplementedError("training is ported in a later slice")
+    def _put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Host arrays to the device: pinned memory and an asynchronous copy
+        on the card, a plain conversion on the CPU."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t
+        return out
+
+    def _update_ema(self) -> None:
+        d = self.ema_decay
+        with torch.no_grad():
+            for e, p in zip(self.ema_network.parameters(), self.network.parameters()):
+                e.mul_(d).add_(p, alpha=1 - d)
+
+    def save_checkpoint(self, step: int) -> str:
+        return ckpt.save(self.work_dir, step, {
+            "step": step,
+            "model": self.network.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "ema": self.ema_network.state_dict() if self.ema_network is not None else None,
+        })
+
+    def train_step(self, batch: Dict[str, torch.Tensor], step: int) -> Dict[str, torch.Tensor]:
+        """One optimizer step; returns the network's logs, detached, on the device."""
+        self.optimizer.zero_grad(set_to_none=True)
+        outputs = self.network(batch, generator=step_generator(self.device, self.seed, step), train=True)
+        loss, logs = self.network.loss(outputs, batch)
+        loss.backward()
+        if self.grad_clip is not None:
+            torch.nn.utils.clip_grad_norm_(self.network.parameters(), self.grad_clip)
+        self.optimizer.step()
+        self.scheduler.step()
+        if self.ema_network is not None:
+            self._update_ema()
+        return {k: v.detach() for k, v in logs.items()}
+
+    # ------------------------------------------------------------------
+    def run(self) -> int:
+        """Train from ``start_step`` to ``max_iters`` (or a stop request);
+        returns the step reached."""
+        for h in self.hooks:
+            h.on_run_begin(self)
+        window_logs: Dict[str, list] = {}
+        t_window = time.perf_counter()
+        prefetcher = BatchPrefetcher(
+            fetch=self.dataset.train_batch, put=self._put_batch,
+            start_step=self.start_step, max_steps=self.max_iters,
+        )
+        step = self.start_step
+        self.network.train()
+        try:
+            while step < self.max_iters and not self._stop:
+                logs = self.train_step(prefetcher.get(step), step)
+                step += 1
+                self.step = step
+                for k, v in logs.items():
+                    window_logs.setdefault(k, []).append(v)
+
+                if step % self.log_interval == 0:
+                    # one host sync per window
+                    vals = {k: float(torch.stack(v).float().mean()) for k, v in window_logs.items()}
+                    dt = time.perf_counter() - t_window
+                    rays_s = self.dataset.N_rand * self.log_interval / dt
+                    self.logger.info(
+                        "iter %d/%d  %s  %.0f rays/s  %.1f ms/it", step, self.max_iters,
+                        "  ".join(f"{k} {v:.4f}" for k, v in vals.items()), rays_s,
+                        1000 * dt / self.log_interval,
+                    )
+                    self.last_logs = {**vals, "rays_per_sec": rays_s, "ms_per_step": 1000 * dt / self.log_interval}
+                    window_logs = {}
+                    t_window = time.perf_counter()
+
+                for h in self.hooks:
+                    h.after_step(self, step, logs)
+                if self.eval_interval and step % self.eval_interval == 0:
+                    for h in self.hooks:
+                        h.on_eval(self, step)
+                if self.ckpt_interval and step % self.ckpt_interval == 0:
+                    self.save_checkpoint(step)
+        finally:
+            prefetcher.close()
+        if self.ckpt_interval:
+            self.save_checkpoint(step)
+        for h in self.hooks:
+            h.on_run_end(self)
+        return step
+
+
+def build_hooks(cfgs: Optional[List[Dict[str, Any]]]) -> List[Hook]:
+    return [HOOKS.build(c) for c in (cfgs or [])]

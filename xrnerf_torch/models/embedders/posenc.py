@@ -33,11 +33,14 @@ _TWO_PI = 6.283185307179586
 
 def _sin_2pi(t: torch.Tensor) -> torch.Tensor:
     """sin(2π·t): reduce t to [-0.5, 0.5] with one round-half-to-even
-    (``torch.round`` matches ``jnp.round``) + degree-7 poly."""
+    (``torch.round`` matches ``jnp.round``) + degree-7 poly. The constants
+    stay Python floats: an op rounds them to the tensor's dtype, as a
+    float32 constant would be, and a device tensor made from one would be
+    a synchronising host-to-device copy."""
     t = t - torch.round(t)
-    th = t * torch.tensor(_TWO_PI, dtype=t.dtype, device=t.device)
+    th = t * _TWO_PI
     t2 = th * th
-    c0, c1, c2, c3 = (torch.tensor(c, dtype=t.dtype, device=t.device) for c in _SIN_C)
+    c0, c1, c2, c3 = _SIN_C
     return th * (c0 + t2 * (c1 + t2 * (c2 + t2 * c3)))
 
 
@@ -46,9 +49,7 @@ def posenc_fast(x: torch.Tensor, num_freqs: int, include_input: bool = True) -> 
     bf16-accurate (max abs error ~9e-4 at L=10); feeds the fused bf16 MLP."""
     if num_freqs == 0:
         return x
-    turns = 2.0 ** torch.arange(num_freqs, dtype=x.dtype, device=x.device) * torch.tensor(
-        _INV_2PI, dtype=x.dtype, device=x.device
-    )
+    turns = 2.0 ** torch.arange(num_freqs, dtype=x.dtype, device=x.device) * _INV_2PI
     tb = x[..., None, :] * turns[:, None]  # [..., L, D] in turns
     enc = torch.stack([_sin_2pi(tb), _sin_2pi(tb + 0.25)], dim=-2)
     enc = enc.reshape(*x.shape[:-1], -1)

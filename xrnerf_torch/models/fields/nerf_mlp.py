@@ -8,8 +8,11 @@ maps one-to-one through ``utils/weights.py``.
 
 ``fused=False`` runs ``nn.Linear`` in f32. ``fused=True`` needs the
 reference topology (netdepth 8, skip at 4, view dirs) and routes the whole
-MLP through ``ops/fused_nerf_mlp.py`` (the CUDA kernel on the card, its
-plain version on the CPU), packing the weights once per weight version.
+MLP through ``ops/fused_nerf_mlp.py`` (the CUDA kernels on the card, their
+plain versions on the CPU). When a parameter needs a gradient it packs the
+live parameters each call and runs the autograd op (forward and backward
+kernels); otherwise (serving, ``inference_mode``) it runs the forward
+kernel on a bf16 pack cached per weight version.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.fused_nerf_mlp import fused_nerf_mlp_fwd, pack_params
+from ...ops.fused_nerf_mlp import fused_nerf_mlp, fused_nerf_mlp_fwd, pack_params
 
 # flax lecun_normal: truncated normal on [-2, 2] std, rescaled so the
 # variance is 1/fan_in (jax.nn.initializers.variance_scaling).
@@ -97,11 +100,12 @@ class NerfMLP(nn.Module):
             if views_enc is None:
                 raise ValueError("NerfMLP(fused=True) needs views_enc")
             lead = pts_enc.shape[:-1]
-            rgb, sigma = fused_nerf_mlp_fwd(
-                pts_enc.reshape(-1, pts_enc.shape[-1]).float().contiguous(),
-                views_enc.reshape(-1, views_enc.shape[-1]).float().contiguous(),
-                self.packed(),
-            )
+            x = pts_enc.reshape(-1, pts_enc.shape[-1]).float().contiguous()
+            v = views_enc.reshape(-1, views_enc.shape[-1]).float().contiguous()
+            if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+                rgb, sigma = fused_nerf_mlp(x, v, dict(self.named_parameters()))
+            else:
+                rgb, sigma = fused_nerf_mlp_fwd(x, v, self.packed())
             return rgb.reshape(*lead, 3), sigma.reshape(lead)
         x = pts_enc.float()
         h = x

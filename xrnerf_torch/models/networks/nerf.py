@@ -81,7 +81,10 @@ class NerfNetwork(nn.Module):
         pts_enc = enc(pts.reshape(n * s, 3), self.multires)
         views_enc = None
         if self.use_viewdirs:
-            views_enc = enc(viewdirs, self.multires_dirs).repeat_interleave(s, dim=0)
+            # each ray's encoding for its s samples; expand + reshape, since
+            # repeat_interleave sizes its output with a device-to-host sync
+            views_enc = enc(viewdirs, self.multires_dirs)
+            views_enc = views_enc[:, None].expand(n, s, views_enc.shape[-1]).reshape(n * s, -1)
         rgb, sigma = mlp(pts_enc, views_enc)
         return rgb.reshape(n, s, 3), sigma.reshape(n, s)
 

@@ -14,9 +14,27 @@ import torch
 import torch.nn.functional as F
 
 
+class _PositiveCumprod(torch.autograd.Function):
+    """``torch.cumprod`` over the last dim for inputs > 0. Its backward is
+    torch's own for inputs without zeros, ``reversed_cumsum(g * out) / x``,
+    minus torch's check for zeros, a device-to-host sync per call."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (g * out).flip(-1).cumsum(-1).flip(-1) / x
+
+
 def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
-    """cumprod shifted right by one with leading 1 (transmittance)."""
-    return torch.cat([torch.ones_like(x[..., :1]), torch.cumprod(x[..., :-1], dim=-1)], dim=-1)
+    """cumprod shifted right by one with leading 1 (transmittance); ``x``
+    must be > 0, as ``1 - alpha + 1e-10`` is."""
+    return torch.cat([torch.ones_like(x[..., :1]), _PositiveCumprod.apply(x[..., :-1])], dim=-1)
 
 
 def volume_render(

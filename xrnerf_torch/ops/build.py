@@ -11,6 +11,7 @@ flags), built on first use into ``xrnerf_torch/_build/`` (listed in
 ``.gitignore``) and reused while the source is unchanged. nvcc's output
 (``-Xptxas=-v``: registers and spills) is kept beside it as ``.log``.
 Nothing is built at import time; the CPU path never builds.
+:func:`load_libraries` builds several sources at once, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -63,3 +65,9 @@ def load_library(name: str) -> ctypes.CDLL:
         os.replace(tmp, out)
     _LIBS[name] = ctypes.CDLL(str(out))
     return _LIBS[name]
+
+
+def load_libraries(names: Sequence[str]) -> List[ctypes.CDLL]:
+    """:func:`load_library` for each name, the ``nvcc`` calls all started together."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
+        return list(ex.map(load_library, names))

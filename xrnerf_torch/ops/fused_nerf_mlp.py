@@ -1,25 +1,33 @@
-"""Fused vanilla-NeRF MLP forward: wrapper, plain version and kernel binding.
+"""Fused vanilla-NeRF MLP, forward and backward: wrappers, plain versions,
+kernel bindings and the autograd op.
 
-Port of ``xrnerf_tpu/ops/pallas/fused_nerf_mlp.py`` (forward only; the
-backward kernel comes with training). The kernel is the hand-written CUDA
-``xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu``; its source note gives the
-design. Numerics are the TPU kernel's ``_trunk_forward``: bf16 operands,
-f32 accumulation and biases, hidden activations rounded to bf16, sigma
-from the f32 accumulator, rgb in f32.
+Port of ``xrnerf_tpu/ops/pallas/fused_nerf_mlp.py``. The kernels are the
+hand-written CUDA ``xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu`` and
+``fused_nerf_mlp_bwd.cu``; their source notes give the designs. Numerics
+are the TPU kernels': bf16 operands, f32 accumulation and biases, hidden
+activations rounded to bf16, sigma from the f32 accumulator, rgb in f32;
+the backward rounds each dpre to bf16 before its products and sums bias
+gradients from the f32 dpre (``_bwd_kernel``).
 
-- :func:`pack_params` packs an ``NerfMLP``'s weights once into one bf16
-  and one f32 buffer. It holds the operands of the TPU pack
-  (``_packed_shapes``, :281-295), stored [out, in] so each mma B-fragment
-  register is one 32-bit load, with the 384-wide ``feature|alpha`` head
-  split into a 256-row feature block and an 8-row alpha block, and the
-  rgb head padded to 8 rows rather than 128.
-- :func:`fused_nerf_mlp_fwd` runs it: the plain version for a CPU tensor,
-  the kernel for a CUDA tensor (raising if the kernel cannot build or
-  launch — there is no fallback). ``fused_nerf_mlp_fwd.launches`` counts
-  kernel launches.
-- :func:`fused_nerf_mlp_ref` is the plain version: the same function in
-  torch ops, rounded at the same points, with bf16 operands emulated as
-  f32 values (``a.to(bf16).float() @ w.to(bf16).float()``).
+- :func:`pack_params_f32` packs a ``NerfMLP``'s weights into one flat
+  weight and one flat bias buffer with ``torch.cat``/``F.pad``, so on live
+  parameters autograd routes the buffers' gradients back to each
+  ``nn.Linear`` (the JAX package's jnp packing, :382-440). It holds the
+  operands of the TPU pack (``_packed_shapes``, :281-295), stored [out, in]
+  so each mma B-fragment register is one 32-bit load, with the 384-wide
+  ``feature|alpha`` head split into a 256-row feature block and an 8-row
+  alpha block, and the rgb head padded to 8 rows rather than 128.
+  :func:`pack_params` is the same pack with the weights cast to bf16 once,
+  as the serving path caches it.
+- :func:`fused_nerf_mlp_fwd` / :func:`fused_nerf_mlp_bwd` run the forward
+  and backward: the plain version for a CPU tensor, the kernel for a CUDA
+  tensor (raising if the kernel cannot build or launch — there is no
+  fallback). ``.launches`` on each counts kernel launches.
+- :func:`fused_nerf_mlp_ref` / :func:`fused_nerf_mlp_bwd_ref` are the plain
+  versions: the same functions in torch ops, rounded at the same points,
+  with bf16 operands emulated as f32 values.
+- :class:`FusedNerfMLPFunction` is the differentiable op (``_fused_core``'s
+  custom VJP, :308-376): f32 weight and bias buffers in, f32 gradients out.
 """
 
 from __future__ import annotations
@@ -64,9 +72,11 @@ def _layout(width: int, px: int, pv: int) -> Tuple[List[Tuple[str, int, int]], L
     return mats, biases
 
 
-def pack_params(sd: Mapping[str, torch.Tensor], din: int, dv: int) -> PackedNerfMLP:
-    """Pack a ``NerfMLP`` state dict (``pts_0.weight`` [out, in], ...) for
-    ``pts_enc`` of width ``din`` and ``views_enc`` of width ``dv``."""
+def pack_params_f32(sd: Mapping[str, torch.Tensor], din: int, dv: int) -> PackedNerfMLP:
+    """Pack a ``NerfMLP``'s parameters (``pts_0.weight`` [out, in], ...) for
+    ``pts_enc`` of width ``din`` and ``views_enc`` of width ``dv`` into f32
+    buffers. Differentiable: given live parameters, the buffers keep the
+    graph back to them."""
 
     def w(name):
         return sd[f"{name}.weight"]
@@ -105,9 +115,16 @@ def pack_params(sd: Mapping[str, torch.Tensor], din: int, dv: int) -> PackedNerf
         raise ValueError(
             f"state dict does not hold a NerfMLP of width {width} with inputs {din}/{dv}"
         )
-    wbuf = torch.cat([m.reshape(-1) for m in mats]).to(_BF).contiguous()
-    bbuf = torch.cat([t.reshape(-1) for t in biases]).float().contiguous()
+    wbuf = torch.cat([m.reshape(-1) for m in mats]).float()
+    bbuf = torch.cat([t.reshape(-1) for t in biases]).float()
     return PackedNerfMLP(wbuf, bbuf, width, din, dv, px, pv)
+
+
+def pack_params(sd: Mapping[str, torch.Tensor], din: int, dv: int) -> PackedNerfMLP:
+    """The kernel's pack: :func:`pack_params_f32` with the weights cast to
+    bf16 once (``_cast_weights``, :298-305)."""
+    p = pack_params_f32(sd, din, dv)
+    return p._replace(weights=p.weights.to(_BF).contiguous(), biases=p.biases.contiguous())
 
 
 def unpack_params(packed: PackedNerfMLP) -> Dict[str, torch.Tensor]:
@@ -124,53 +141,135 @@ def unpack_params(packed: PackedNerfMLP) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _rb(a: torch.Tensor) -> torch.Tensor:
+    """Round to bf16, compute on in f32."""
+    return a.to(_BF).float()
+
+
+def _ref_trunk(x: torch.Tensor, v: torch.Tensor, packed: PackedNerfMLP):
+    """The plain forward's pieces: f32 copies of the bf16 weights and f32
+    biases (by name), bf16-valued x and v, h0..h7, feat and v1."""
+    p = {k: t.float() for k, t in unpack_params(packed).items()}
+
+    def mm(a, name):  # bf16-valued operands, f32 accumulation
+        return a @ p[name].t()
+
+    xb = _rb(F.pad(x.float(), (0, packed.px - x.shape[1])))
+    vb = _rb(F.pad(v.float(), (0, packed.pv - v.shape[1])))
+    hs = [_rb(F.relu(mm(xb, "w0") + p["b0"]))]
+    for i in range(1, 8):
+        if i == 5:  # the skip input [x | h4] as split matmuls
+            pre = mm(hs[-1], "w5h") + mm(xb, "w5x") + p["b5"]
+        else:
+            pre = mm(hs[-1], f"w{i}") + p[f"b{i}"]
+        hs.append(_rb(F.relu(pre)))
+    feat = _rb(mm(hs[7], "wf") + p["bf"])
+    v1 = _rb(F.relu(mm(feat, "wvf") + mm(vb, "wvv") + p["bv"]))
+    return p, xb, vb, hs, feat, v1
+
+
 def fused_nerf_mlp_ref(
     x: torch.Tensor, v: torch.Tensor, packed: PackedNerfMLP
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: (raw_rgb [N, 3], raw_sigma [N]) in f32."""
-    p = unpack_params(packed)
-
-    def rb(a):  # round to bf16, compute on in f32
-        return a.to(_BF).float()
-
-    def mm(a, name):  # bf16-valued operands, f32 accumulation
-        return a @ p[name].float().t()
-
-    xb = rb(F.pad(x.float(), (0, packed.px - x.shape[1])))
-    vb = rb(F.pad(v.float(), (0, packed.pv - v.shape[1])))
-    h = rb(F.relu(mm(xb, "w0") + p["b0"]))
-    for i in range(1, 5):
-        h = rb(F.relu(mm(h, f"w{i}") + p[f"b{i}"]))
-    h = rb(F.relu(mm(h, "w5h") + mm(xb, "w5x") + p["b5"]))
-    for i in (6, 7):
-        h = rb(F.relu(mm(h, f"w{i}") + p[f"b{i}"]))
-    feat = rb(mm(h, "wf") + p["bf"])
-    sigma = (mm(h, "wa") + p["ba"])[:, 0]
-    v1 = rb(F.relu(mm(feat, "wvf") + mm(vb, "wvv") + p["bv"]))
-    rgb = (mm(v1, "wrgb") + p["brgb"])[:, :3]
+    p, _, _, hs, _, v1 = _ref_trunk(x, v, packed)
+    sigma = (hs[7] @ p["wa"].t() + p["ba"])[:, 0]
+    rgb = (v1 @ p["wrgb"].t() + p["brgb"])[:, :3]
     return rgb.contiguous(), sigma.contiguous()
 
 
-_LIB = None
+def fused_nerf_mlp_bwd_ref(
+    x: torch.Tensor, v: torch.Tensor, g: torch.Tensor, packed: PackedNerfMLP
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward, ``_bwd_kernel`` (:159-271) step by step in the port's
+    pack layout: (dx [N, din], dv [N, dv], dw, db) in f32, dw and db flat
+    in the pack's order. ``g`` [N, 4] holds d loss / d raw_rgb in columns
+    0..2 and d loss / d raw_sigma in column 3. Each dpre is rounded to bf16
+    before its products; bias gradients are sums of the f32 dpre."""
+    p, xb, vb, hs, feat, v1 = _ref_trunk(x, v, packed)
+
+    def mm_tt(d, h):  # d^T @ h: [out, in] weight gradient, f32 accumulation
+        return d.t() @ h
+
+    def masked(h_out, dh):  # the ReLU mask from the bf16 activation
+        return torch.where(h_out > 0, dh, torch.zeros_like(dh))
+
+    g = g.float()
+    g_rgb = F.pad(g[:, :3], (0, _HEAD - 3))
+    g_sig = F.pad(g[:, 3:4], (0, _HEAD - 1))
+    dw, db = {}, {}
+    # rgb head
+    grb = _rb(g_rgb)
+    dw["wrgb"], db["brgb"] = mm_tt(grb, v1), g_rgb.sum(0)
+    # view branch (the split concat: feature part + view part)
+    dpv = masked(v1, grb @ p["wrgb"])
+    dpvb = _rb(dpv)
+    dw["wvf"], dw["wvv"], db["bv"] = mm_tt(dpvb, feat), mm_tt(dpvb, vb), dpv.sum(0)
+    dfeat = dpvb @ p["wvf"]
+    dv = dpvb @ p["wvv"]
+    # feature and alpha heads
+    dfb, gsb = _rb(dfeat), _rb(g_sig)
+    dw["wf"], dw["wa"] = mm_tt(dfb, hs[7]), mm_tt(gsb, hs[7])
+    db["bf"], db["ba"] = dfeat.sum(0), g_sig.sum(0)
+    dh = dfb @ p["wf"] + gsb @ p["wa"]
+    # trunk, 7 down to 0 (5: the skip input [x | h4] as split matmuls)
+    for i in range(7, -1, -1):
+        dpre = masked(hs[i], dh)
+        dpb = _rb(dpre)
+        db[f"b{i}"] = dpre.sum(0)
+        if i == 5:
+            dw["w5h"], dw["w5x"] = mm_tt(dpb, hs[4]), mm_tt(dpb, xb)
+            dx = dpb @ p["w5x"]
+            dh = dpb @ p["w5h"]
+        elif i == 0:
+            dw["w0"] = mm_tt(dpb, xb)
+            dx = dx + dpb @ p["w0"]
+        else:
+            dw[f"w{i}"] = mm_tt(dpb, hs[i - 1])
+            dh = dpb @ p[f"w{i}"]
+    mats, biases = _layout(packed.width, packed.px, packed.pv)
+    dwbuf = torch.cat([dw[name].reshape(-1) for name, _, _ in mats])
+    dbbuf = torch.cat([db[name] for name, _ in biases])
+    return dx[:, : x.shape[1]].contiguous(), dv[:, : v.shape[1]].contiguous(), dwbuf, dbbuf
 
 
-def _kernel_lib():
-    global _LIB
-    if _LIB is None:
+_VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "fused_nerf_mlp_fwd": [_VP, _CI, _VP, _CI, _CLL, _VP, _VP, _VP, _VP, _VP],
+    "fused_nerf_mlp_bwd": [_VP, _CI, _VP, _CI, _VP, _CLL, _VP, _VP, _VP, _VP, _VP, _VP,
+                           _VP, _CLL, _VP, _CI, _CLL, _VP, _VP],
+}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _kernel_lib(name: str) -> ctypes.CDLL:
+    """Build (first call) and bind ``csrc/<name>.cu``."""
+    if name not in _LIBS:
         from .build import load_library
 
-        lib = load_library("fused_nerf_mlp_fwd")
-        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.xr_fused_nerf_mlp_fwd.argtypes = [vp, ci, vp, ci, cll, vp, vp, vp, vp, vp]
-        lib.xr_fused_nerf_mlp_fwd.restype = ci
-        lib.xr_fused_nerf_mlp_fwd_weight_elems.argtypes = []
-        lib.xr_fused_nerf_mlp_fwd_weight_elems.restype = cll
-        lib.xr_fused_nerf_mlp_fwd_bias_elems.argtypes = []
-        lib.xr_fused_nerf_mlp_fwd_bias_elems.restype = cll
-        lib.xr_cuda_error_string.argtypes = [ci]
+        lib = load_library(name)
+        fn = getattr(lib, f"xr_{name}")
+        fn.argtypes, fn.restype = _ARGTYPES[name], _CI
+        counts = ["weight_elems", "bias_elems"] + (["scratch_features"] if name.endswith("bwd") else [])
+        for what in counts:
+            f = getattr(lib, f"xr_{name}_{what}")
+            f.argtypes, f.restype = [], _CLL
+        lib.xr_cuda_error_string.argtypes = [_CI]
         lib.xr_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def _check_pack_size(lib, name: str, packed: PackedNerfMLP) -> None:
+    for got, what in ((packed.weights.numel(), "weight_elems"), (packed.biases.numel(), "bias_elems")):
+        want = getattr(lib, f"xr_{name}_{what}")()
+        if got != want:
+            raise ValueError(f"packed {what} hold {got} elements, the kernel expects {want}")
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.xr_cuda_error_string(err).decode()} ({err})")
 
 
 def _check_kernel_args(x, v, packed: PackedNerfMLP) -> None:
@@ -190,30 +289,30 @@ def _check_kernel_args(x, v, packed: PackedNerfMLP) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def fused_nerf_mlp_fwd(
-    x: torch.Tensor, v: torch.Tensor, packed: PackedNerfMLP
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(raw_rgb [N, 3], raw_sigma [N]) f32 from pts_enc ``x`` [N, dx] and
-    views_enc ``v`` [N, dv]: the plain version on the CPU, the CUDA kernel
-    on the card."""
+def _check_shapes(x, v, packed: PackedNerfMLP) -> str:
+    """Validate pts_enc / views_enc against the pack; returns the device type."""
     if x.dim() != 2 or v.dim() != 2 or x.shape[0] != v.shape[0]:
         raise ValueError(f"expected pts_enc [N, dx] and views_enc [N, dv], got {tuple(x.shape)}, {tuple(v.shape)}")
     if (x.shape[1], v.shape[1]) != (packed.din, packed.dv):
         raise ValueError(
             f"inputs have {x.shape[1]}/{v.shape[1]} columns, the weights were packed for {packed.din}/{packed.dv}"
         )
-    if x.device.type == "cpu":
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the fused NeRF MLP runs on cpu or cuda, not {x.device}")
+    return x.device.type
+
+
+def fused_nerf_mlp_fwd(
+    x: torch.Tensor, v: torch.Tensor, packed: PackedNerfMLP
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(raw_rgb [N, 3], raw_sigma [N]) f32 from pts_enc ``x`` [N, dx] and
+    views_enc ``v`` [N, dv]: the plain version on the CPU, the CUDA kernel
+    on the card."""
+    if _check_shapes(x, v, packed) == "cpu":
         return fused_nerf_mlp_ref(x, v, packed)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_nerf_mlp_fwd runs on cpu or cuda, not {x.device}")
     _check_kernel_args(x, v, packed)
-    lib = _kernel_lib()
-    for got, want, what in (
-        (packed.weights.numel(), lib.xr_fused_nerf_mlp_fwd_weight_elems(), "weights"),
-        (packed.biases.numel(), lib.xr_fused_nerf_mlp_fwd_bias_elems(), "biases"),
-    ):
-        if got != want:
-            raise ValueError(f"packed {what} hold {got} elements, the kernel expects {want}")
+    lib = _kernel_lib("fused_nerf_mlp_fwd")
+    _check_pack_size(lib, "fused_nerf_mlp_fwd", packed)
     n = x.shape[0]
     rgb = torch.empty((n, 3), dtype=torch.float32, device=x.device)
     sigma = torch.empty((n,), dtype=torch.float32, device=x.device)
@@ -224,13 +323,108 @@ def fused_nerf_mlp_fwd(
             packed.weights.data_ptr(), packed.biases.data_ptr(),
             rgb.data_ptr(), sigma.data_ptr(), stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"fused_nerf_mlp_fwd launch failed: {lib.xr_cuda_error_string(err).decode()} ({err})"
-        )
+    _raise_on(lib, err, "fused_nerf_mlp_fwd")
     fused_nerf_mlp_fwd.launches += 1
     return rgb, sigma
 
 
 fused_nerf_mlp_fwd.launches = 0
 
+
+
+def _bwd_splits(n: int) -> Tuple[int, int, int]:
+    """(npad, kchunk, splits) of the backward's weight-gradient pass: rows
+    padded to the 128-row tile, then cut into at most 64 chunks of a
+    multiple of 128 rows, each summed into its own f32 partial."""
+    npad = _ceil_to(max(n, 1), 128)
+    kchunk = _ceil_to(-(-npad // 64), 128)
+    return npad, kchunk, -(-npad // kchunk)
+
+
+def fused_nerf_mlp_bwd(
+    x: torch.Tensor, v: torch.Tensor, g: torch.Tensor, packed: PackedNerfMLP
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx [N, din], dv [N, dv], dw, db) in f32 for upstream gradient ``g``
+    [N, 4] (rgb 0..2, sigma 3): the plain version on the CPU, the CUDA
+    kernel on the card. dw / db are flat, in the pack's order."""
+    dev = _check_shapes(x, v, packed)
+    if g.shape != (x.shape[0], 4):
+        raise ValueError(f"expected g [N, 4], got {tuple(g.shape)}")
+    if dev == "cpu":
+        return fused_nerf_mlp_bwd_ref(x, v, g, packed)
+    _check_kernel_args(x, v, packed)
+    if g.device != x.device or g.dtype != torch.float32 or not g.is_contiguous():
+        raise ValueError("g must be a contiguous float32 tensor on pts_enc's device")
+    n = x.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dw = torch.zeros(packed.weights.numel(), **f32)
+    db = torch.zeros(packed.biases.numel(), **f32)
+    if n == 0:
+        return torch.zeros((0, x.shape[1]), **f32), torch.zeros((0, v.shape[1]), **f32), dw, db
+    lib = _kernel_lib("fused_nerf_mlp_bwd")
+    _check_pack_size(lib, "fused_nerf_mlp_bwd", packed)
+    npad, kchunk, splits = _bwd_splits(n)
+    dx = torch.empty((n, x.shape[1]), **f32)
+    dv = torch.empty((n, v.shape[1]), **f32)
+    scratch = torch.empty(lib.xr_fused_nerf_mlp_bwd_scratch_features() * npad, dtype=_BF, device=x.device)
+    wpart = torch.empty(splits * dw.numel(), **f32)
+    bpart = torch.empty(2 * (npad // 128) * db.numel(), **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.xr_fused_nerf_mlp_bwd(
+            x.data_ptr(), x.shape[1], v.data_ptr(), v.shape[1], g.data_ptr(), n,
+            packed.weights.data_ptr(), packed.biases.data_ptr(),
+            dx.data_ptr(), dv.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            scratch.data_ptr(), npad, wpart.data_ptr(), splits, kchunk, bpart.data_ptr(), stream,
+        )
+    _raise_on(lib, err, "fused_nerf_mlp_bwd")
+    fused_nerf_mlp_bwd.launches += 1
+    return dx, dv, dw, db
+
+
+fused_nerf_mlp_bwd.launches = 0
+
+
+class FusedNerfMLPFunction(torch.autograd.Function):
+    """The fused MLP as an autograd op: ``apply(x, v, weights, biases, meta)``
+    with f32 ``x`` [N, din], ``v`` [N, dv] and the f32 buffers of
+    :func:`pack_params_f32` (``meta`` = its (width, din, dv, px, pv)).
+    Forward casts the weights to bf16 once and runs
+    :func:`fused_nerf_mlp_fwd`; backward runs :func:`fused_nerf_mlp_bwd`
+    and returns f32 gradients for the weight and bias buffers, plus dx and
+    dv where they are asked for."""
+
+    @staticmethod
+    def forward(ctx, x, v, weights, biases, meta):
+        if weights.dtype != torch.float32 or biases.dtype != torch.float32:
+            # a bf16 leaf would round every weight gradient to bf16
+            raise TypeError(f"weights and biases must be float32, got {weights.dtype} / {biases.dtype}")
+        packed = PackedNerfMLP(weights.to(_BF).contiguous(), biases.contiguous(), *meta)
+        rgb, sigma = fused_nerf_mlp_fwd(x, v, packed)
+        ctx.save_for_backward(x, v, packed.weights, packed.biases)
+        ctx.meta = meta
+        return rgb, sigma
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_rgb, grad_sigma):
+        x, v, wb, bb = ctx.saved_tensors
+        g = torch.zeros((x.shape[0], 4), dtype=torch.float32, device=x.device)
+        if grad_rgb is not None:
+            g[:, :3] = grad_rgb
+        if grad_sigma is not None:
+            g[:, 3] = grad_sigma
+        dx, dv, dw, db = fused_nerf_mlp_bwd(x, v, g, PackedNerfMLP(wb, bb, *ctx.meta))
+        need_x, need_v = ctx.needs_input_grad[:2]
+        return (dx if need_x else None), (dv if need_v else None), dw, db, None
+
+
+def fused_nerf_mlp(
+    x: torch.Tensor, v: torch.Tensor, params: Mapping[str, torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable fused MLP over a ``NerfMLP``'s live parameters (named
+    as in its state dict): packs them with :func:`pack_params_f32` and
+    applies :class:`FusedNerfMLPFunction`. (raw_rgb [N, 3], raw_sigma [N])."""
+    p = pack_params_f32(params, x.shape[1], v.shape[1])
+    meta = (p.width, p.din, p.dv, p.px, p.pv)
+    return FusedNerfMLPFunction.apply(x, v, p.weights, p.biases, meta)

@@ -1,13 +1,15 @@
-"""CLI entry point of the port: test or render a config's scene.
+"""CLI entry point of the port: train, test or render a config's scene.
 
     python -m xrnerf_torch.run_nerf --config configs/nerf/nerf_blender.py \
-        --dataname lego --test_only --load_from weights.pt [--device cuda]
+        --dataname lego [--max_iters N] [--device cuda]
+    python -m xrnerf_torch.run_nerf --config ... --test_only --load_from weights.pt
 
 Flags are those of the top-level ``run_nerf.py`` plus ``--device``
 (default ``cuda``; raises without a card unless ``--device cpu``).
+Without ``--test_only``/``--render_only`` it trains (``Trainer.run``) with
+the config's optimizer, intervals, hooks and ``ema_decay``;
 ``--test_only`` writes ``<work_dir>/test/test_results.json``;
-``--render_only`` renders the orbit path. Training goes to
-``Trainer.run``, which is ported in a later slice and raises until then.
+``--render_only`` renders the orbit path.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import argparse
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="xrnerf_torch test/render entry")
+    p = argparse.ArgumentParser(description="xrnerf_torch train/test/render entry")
     p.add_argument("--config", required=True, help="python config file")
     p.add_argument("--dataname", default="lego", help="scene name substituted for #DATANAME#")
     p.add_argument("--test_only", action="store_true", help="run test instead of train")
@@ -24,8 +26,7 @@ def parse_args(argv=None):
     p.add_argument("--load_from", default=None, help="weights-only .pt state dict to load")
     p.add_argument("--resume_from", default=None, help="full checkpoint to resume")
     p.add_argument("--work_dir", default=None, help="override cfg.work_dir")
-    p.add_argument("--max_iters", type=int, default=None,
-                   help="override cfg.max_iters (training, ported in a later slice)")
+    p.add_argument("--max_iters", type=int, default=None, help="override cfg.max_iters")
     p.add_argument("--n_model_shards", type=int, default=1, help="model-axis size (multi-GPU is not ported yet)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda", help="where to run")
     return p.parse_args(argv)
@@ -33,7 +34,7 @@ def parse_args(argv=None):
 
 def build_from_config(cfg, args):
     from xrnerf_torch import build_dataset, build_network
-    from xrnerf_torch.core.trainer import Trainer
+    from xrnerf_torch.core.trainer import Trainer, build_hooks
 
     if args.n_model_shards != 1:
         raise NotImplementedError("multi-GPU meshes are ported in a later slice")
@@ -42,11 +43,18 @@ def build_from_config(cfg, args):
     return Trainer(
         network,
         dataset,
+        optimizer=cfg.get("optimizer", {}),
         work_dir=args.work_dir or cfg.get("work_dir", "./work_dir"),
+        max_iters=args.max_iters or cfg.get("max_iters", 200000),
+        eval_interval=cfg.get("eval_interval", 0),
+        ckpt_interval=cfg.get("ckpt_interval", 10000),
+        log_interval=cfg.get("log_interval", 100),
+        hooks=build_hooks(cfg.get("hooks")),
         seed=cfg.get("seed", 0),
         eval_chunk=cfg.get("eval_chunk", 8192),
         resume_from=args.resume_from or cfg.get("resume_from"),
         load_from=args.load_from or cfg.get("load_from"),
+        ema_decay=cfg.get("ema_decay", 0.0),
         device=args.device,
     )
 
