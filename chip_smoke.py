@@ -6,9 +6,9 @@
 Phases, each printed as one JSON line:
 
 1. device  - the card's name and power limit (``nvidia-smi``); TF32 off.
-2. build   - the CUDA kernels ``xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu``
-             and ``fused_nerf_mlp_bwd.cu``, one nvcc each, started
-             together; ptxas registers and spills.
+2. build   - the CUDA kernels ``xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu``,
+             ``fused_nerf_mlp_bwd.cu`` and ``fused_mlp_fwd.cu``, one nvcc
+             each, started together; ptxas registers and spills.
 3. kernel  - ``fused_nerf_mlp_fwd`` against its plain version on the card
              at width 256 with seeded weights, for N = 1000 (ragged tile),
              1,048,576 (one coarse chunk) and 3,145,728 (one fine chunk),
@@ -43,7 +43,33 @@ Phases, each printed as one JSON line:
              gradients (the kernels) against the CPU path's (the plain
              versions), same weights, per leaf cosine > 0.97 and norm ratio
              0.93-1.07.
-8. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+8. kernel (tiny MLPs) - ``fused_mlp2_fwd`` (32-64-16) and ``fused_mlp3_fwd``
+             (31-64-64-3) against their plain versions at N = 1000, 65,536
+             (one grid refresh) and 262,144 (one render chunk), rtol 2e-2 /
+             atol 8e-3; kernel, plain-version and bf16 ``F.linear``-chain
+             times by CUDA events over a run of calls that walk four input
+             buffers (so each finds the L2 cold), queued behind a spin
+             kernel so that the host's launch rate does not enter.
+9. ngp_grid - Instant-NGP from ``configs/instant_ngp/ngp_blender.py`` at
+             full width (16x2 levels, table 2^19, grid 128^3, 512
+             candidates, keep 64, budget 2^18) with ``fused=True``: the
+             Trainer's construction runs ``init_aux`` on the 40 orbit
+             cameras, the seeded table and density column are scaled and the
+             density bias set so density varies widely over the cube (scales
+             printed), and 16
+             ``update_aux`` refreshes run on the card: occupied and
+             untrained share of the grid, ms per refresh.
+10. ngp_slice - the weights and grid go through a ``.pt`` file into a second
+             Trainer (``load_from``, EMA copy as the config asks), which
+             renders an 800x800 view at ``eval_chunk`` 8192: one warm-up and
+             three timed frames, 79 launches of each tiny-MLP kernel per
+             frame, live fraction per chunk (no chunk over the sample
+             budget), finite outputs, and a 32x32 crop re-rendered on the
+             CPU (plain versions, same weights, same grid) must agree at
+             >= 40 dB PSNR. Then one frame under torch.profiler
+             (``ngp_profile``: the kernels', the gather's and the sorts'
+             share) and the count of host syncs in one chunk (``ngp_syncs``).
+11. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 2.
@@ -76,6 +102,15 @@ NET_COS = 0.97  # tests/test_fused_nerf_mlp.py:101-131
 SEED = 0
 BWD_ROWS = (1000, 262_144, 786_432)  # ragged; one coarse and one fine train launch
 TRAIN_STEPS, TRAIN_LOG, N_RAND = 40, 10, 4096  # N_RAND: bench.py's flagship batch
+TINY_ROWS = (1000, 65_536, 262_144)  # ragged; one grid refresh; one render chunk
+TINY_SHAPES = {"fused_mlp2_fwd": (32, 64, 16), "fused_mlp3_fwd": (31, 64, 64, 3)}
+# Seeded NGP field: flax's init, then the table and the density column of
+# the density net are scaled so that raw density is spread widely, and the
+# density bias is set so that this share of random points lies above the
+# grid's threshold (a few percent of the cube ends up occupied, as in a
+# trained scene, and no render chunk overflows the sample budget).
+NGP_TABLE_SCALE, NGP_SIGMA_SCALE, NGP_SHARE_ABOVE = 1e4, 50.0, 0.10
+NGP_REFRESHES = 16
 
 
 def emit(obj) -> None:
@@ -102,19 +137,28 @@ def seeded_mlp_tree(rng, din=63, dv=27, width=256, bias_std=0.1):
     return tree
 
 
-def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
+def time_ms(fn, reps: int = 7, warmup: int = 2, inner: int = 1, head_start_ms: float = 0.0) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``inner`` calls of
+    ``fn``, per call. For kernels shorter than the host takes to launch them,
+    ``head_start_ms`` first keeps the card busy that long (a spin kernel), so
+    the host queues all the calls meanwhile and the events bracket
+    back-to-back device work, not the host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    spin_cycles = int(head_start_ms * 1e-3 * 1.7e9)  # ~1.7 GHz SM clock
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if spin_cycles:
+            torch.cuda._sleep(spin_cycles)
         e0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / inner)
     times.sort()
     return times[len(times) // 2]
 
@@ -167,11 +211,12 @@ def library_params(packed):
     return {k: t.contiguous() for k, t in p.items()}
 
 
-def profile_device(run, wall_ms, phase):
+def profile_device(run, wall_ms, phase, groups=None, top=8):
     """``run()`` under torch.profiler (device activity only): device time by
-    kernel (top 8), the fused kernels' part, and the device's idle share
+    kernel (the ``top`` largest), the fused kernels' part, and the device's idle share
     against ``wall_ms``, the unprofiled time of the same work (the profiler
-    slows the host, so its own wall time overstates idleness)."""
+    slows the host, so its own wall time overstates idleness). ``groups``
+    ({label: substrings of kernel names}) adds each group's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -189,11 +234,16 @@ def profile_device(run, wall_ms, phase):
     busy_ms = sum(ms for _, ms, _ in by_kernel)
     fwd_ms = sum(ms for k, ms, _ in by_kernel if "fused_nerf_mlp_fwd" in k)
     bwd_ms = sum(ms for k, ms, _ in by_kernel if "fused_nerf_mlp_bwd" in k)
-    return {"phase": phase, "profiled_wall_ms": prof_wall_ms, "wall_ms": wall_ms,
+    line = {"phase": phase, "profiled_wall_ms": prof_wall_ms, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
             "fused_mlp_ms": fwd_ms, "fused_mlp_bwd_ms": bwd_ms,
             "fused_share_of_busy": (fwd_ms + bwd_ms) / busy_ms if busy_ms else 0.0,
-            "top": [{"name": k[:100], "ms": ms, "calls": c} for k, ms, c in by_kernel[:8]]}
+            "top": [{"name": k[:100], "ms": ms, "calls": c} for k, ms, c in by_kernel[:top]]}
+    for label, subs in (groups or {}).items():
+        g_ms = sum(ms for k, ms, _ in by_kernel if any(sub in k for sub in subs))
+        line[f"{label}_ms"] = g_ms
+        line[f"{label}_share_of_busy"] = g_ms / busy_ms if busy_ms else 0.0
+    return line
 
 
 def cosine(a, b):
@@ -398,6 +448,250 @@ def train_grads_phase(model_cfg, net_sd):
             "ratio_range": [min(r["ratio"] for r in per_leaf.values()), max(r["ratio"] for r in per_leaf.values())]}
 
 
+def tiny_mlp_phase(dev, gen):
+    """The two tiny-MLP forward kernels against their plain versions;
+    returns their rows by kernel name and N."""
+    import torch.nn.functional as F
+
+    from xrnerf_torch.ops import fused_mlp as fm
+
+    fns = {"fused_mlp2_fwd": (fm.fused_mlp2, fm.fused_mlp2_plain), "fused_mlp3_fwd": (fm.fused_mlp3, fm.fused_mlp3_plain)}
+    rng = np.random.RandomState(SEED + 3)
+    rows = {}
+    for name, shape in TINY_SHAPES.items():
+        fn, plain = fns[name]
+        params = []  # w1 [in, out], b1, w2, b2, ...: lecun-scaled kernels, small biases
+        for i, o in zip(shape[:-1], shape[1:]):
+            params += [torch.from_numpy((rng.standard_normal((i, o)) / math.sqrt(i)).astype("float32")).to(dev),
+                       torch.from_numpy((0.1 * rng.standard_normal(o)).astype("float32")).to(dev)]
+        lib = [(w.t().to(torch.bfloat16).contiguous(), b.to(torch.bfloat16)) for w, b in zip(params[::2], params[1::2])]
+
+        def library(x, *_):  # the yardstick: a bf16 F.linear (cuBLAS) chain, never called by the port
+            h = x.to(torch.bfloat16)
+            for j, (w, b) in enumerate(lib):
+                h = F.linear(h, w, b)
+                if j < len(lib) - 1:
+                    h = F.relu(h)
+            return h.float()
+
+        rows[name] = {}
+        with torch.no_grad():
+            for n in TINY_ROWS:
+                # as the main path gives them: bf16-valued f32 inputs; four buffers, walked in
+                # turn, exceed the 50 MB L2 at the render shape
+                xs = [(torch.rand((n, shape[0]), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16).float()
+                      for _ in range(4)]
+                turn = [0]
+
+                def walk(f):
+                    def call():
+                        turn[0] += 1
+                        return f(xs[turn[0] % 4], *params)
+                    return call
+
+                got, want = fn(xs[0], *params), plain(xs[0], *params)
+                torch.cuda.synchronize()
+                err = check_close(f"{name} N={n}", got, want)
+                lib_err = float((library(xs[0]) - want).abs().max())
+                # microsecond kernels: give the host a head start (see time_ms)
+                ms = time_ms(walk(fn), inner=20, head_start_ms=4.0)
+                plain_ms = time_ms(walk(plain), inner=4, head_start_ms=4.0)
+                library_ms = time_ms(walk(library), inner=4, head_start_ms=4.0)
+                flop = 2 * n * sum(i * o for i, o in zip(shape[:-1], shape[1:]))
+                nbytes = 4 * (n * (shape[0] + shape[-1]) + sum(p.numel() for p in params))
+                bound_ms = max(flop / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S) * 1e3
+                row = {"phase": "kernel", "name": name, "shape": list(shape), "rows": n, "max_abs_err": err,
+                       "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs_err": lib_err,
+                       "bound_ms": bound_ms, "bytes": nbytes, "flop": flop,
+                       "bound_by": "operations" if flop / H100_BF16_FLOPS >= nbytes / H100_HBM_BYTES_S else "bytes",
+                       "gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms}
+                emit(row)
+                rows[name][n] = row
+                del xs, got, want
+                torch.cuda.empty_cache()
+    return rows
+
+
+class OrbitCameras:
+    """What ``HashNerfNetwork.init_aux`` reads of a dataset: the lego camera
+    (800x800, focal 1111.11) on the 40 orbit poses, in NGP grid coordinates."""
+
+    def __init__(self):
+        from xrnerf_torch.datasets.hashnerf import pose_nerf2ngp
+        from xrnerf_torch.datasets.rays import intrinsics_from_hwf, spherical_render_poses
+
+        self.H = self.W = 800
+        self.focal = 0.5 * self.W / math.tan(0.5 * 0.6911112070083618)  # lego camera_angle_x
+        self.K = intrinsics_from_hwf(self.H, self.W, self.focal)
+        self.poses_ngp = np.stack([pose_nerf2ngp(p) for p in spherical_render_poses(40, phi=-30.0, radius=4.0)])
+        self.i_train = np.arange(len(self.poses_ngp))
+
+
+def count_host_syncs(model, batch):
+    """``cudaStreamSynchronize`` calls inside one ``model(batch)`` (the batch
+    already on the card), and the ops the first few ran inside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model(batch, train=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model(batch, train=False)
+    torch.cuda.synchronize()
+    events = list(prof.events())
+    syncs = [e for e in events if e.name == "cudaStreamSynchronize"]
+    inside = []
+    for e in syncs[:8]:
+        outer = [o for o in events if o is not e and o.thread == e.thread and o.name.startswith("aten::")
+                 and o.time_range.start <= e.time_range.start and o.time_range.end >= e.time_range.end]
+        outer.sort(key=lambda o: o.time_range.end - o.time_range.start)
+        inside.append([o.name for o in outer[:2]])
+    return len(syncs), inside
+
+
+def ngp_phases(work_dir):
+    """Instant-NGP serving at full width: grid refreshes, then frames through
+    a Trainer built from a weights file. Returns the launches of the two
+    tiny-MLP kernels on that path."""
+    from xrnerf_torch import build_network, load_config
+    from xrnerf_torch.core.renderer import render_image
+    from xrnerf_torch.core.trainer import Trainer
+    from xrnerf_torch.datasets.rays import get_rays_np
+    from xrnerf_torch.models.samplers.ngp_march import march_rays
+    from xrnerf_torch.ops.fused_mlp import fused_mlp2, fused_mlp3
+    from xrnerf_torch.utils.metrics import psnr
+
+    cfg = load_config(os.path.join(ROOT, "configs", "instant_ngp", "ngp_blender.py"), dataname="lego")
+    model_cfg = dict(cfg["model"], fused=True)
+    chunk = int(cfg["eval_chunk"])
+    cams = OrbitCameras()
+    torch.cuda.reset_peak_memory_stats()
+    fused_mlp2.launches = fused_mlp3.launches = 0  # the main path starts here
+
+    # the grid a server needs: init_aux at construction, then refreshes
+    t0 = time.perf_counter()
+    first = Trainer(build_network(model_cfg, device="cuda"), dataset=cams, work_dir=None, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    net = first.network
+    with torch.no_grad():
+        net.field.encoding.table.mul_(NGP_TABLE_SCALE)
+        net.field.d_w2[:, 0].mul_(NGP_SIGMA_SCALE)
+        pts = torch.rand((65536, 3), generator=torch.Generator(device="cuda").manual_seed(SEED + 7), device="cuda")
+        raw = net.field.density(pts)[0]  # bias 0; sigma * dt > threshold <=> raw > log(threshold / dt)
+        bar = math.log(model_cfg["density_threshold"] * model_cfg["n_candidates"] / math.sqrt(3.0))
+        sigma_bias = bar - float(torch.quantile(raw, 1.0 - NGP_SHARE_ABOVE))
+        net.field.d_b2[0] = sigma_bias
+        raw_std = float(raw.std())
+    fused_mlp2.launches = 0  # the calibration launch above is not the main path
+    untrained = float((net.grid_density < 0).float().mean())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    refresh_ms = []
+    for _ in range(NGP_REFRESHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.update_aux(gen)
+        torch.cuda.synchronize()
+        refresh_ms.append((time.perf_counter() - t0) * 1e3)
+    if fused_mlp2.launches != NGP_REFRESHES or fused_mlp3.launches != 0:
+        raise AssertionError(f"{NGP_REFRESHES} refreshes launched fused_mlp2 {fused_mlp2.launches} times")
+    occupied = float(net.grid_bitfield.float().mean())
+    if not (0.0 < occupied < 0.5) or bool(net.grid_bitfield[net.grid_density < 0].any()):
+        raise AssertionError(f"occupied share {occupied} after {NGP_REFRESHES} refreshes, or an untrained cell is occupied")
+    emit({"phase": "ngp_grid", "config": "configs/instant_ngp/ngp_blender.py", "fused": True,
+          "grid_res": model_cfg["grid_res"], "cameras": len(cams.poses_ngp), "construct_s": construct_s,
+          "table_scale": NGP_TABLE_SCALE, "sigma_weight_scale": NGP_SIGMA_SCALE, "sigma_bias": sigma_bias,
+          "share_above_threshold": NGP_SHARE_ABOVE, "raw_sigma_std": raw_std,
+          "refreshes": NGP_REFRESHES, "samples_per_refresh": model_cfg["grid_update_samples"],
+          "occupied_share": occupied, "untrained_share": untrained,
+          "ms_per_refresh": float(np.median(refresh_ms[1:])), "refresh_ms": refresh_ms,
+          "launches_per_refresh": {"fused_mlp2_fwd": 1, "fused_mlp3_fwd": 0}})
+
+    # serving: weights and grid through a file into a second Trainer
+    pt = os.path.join(work_dir, "ngp_weights.pt")
+    torch.save(net.state_dict(), pt)
+    del first, net
+    torch.cuda.empty_cache()
+    tr = Trainer(build_network(model_cfg, device="cuda"), dataset=cams, work_dir=None, eval_chunk=chunk,
+                 seed=SEED + 1, load_from=pt, ema_decay=cfg["ema_decay"], device="cuda")
+    H, W = cams.H, cams.W
+    rays_o, rays_d = get_rays_np(H, W, cams.K, cams.poses_ngp[8])
+    rays = {"rays_o": rays_o.reshape(-1, 3), "rays_d": rays_d.reshape(-1, 3)}
+    n_rays = H * W
+    n_chunks = math.ceil(n_rays / chunk)
+    frame_ms, out = [], None
+    for i in range(4):  # one warm-up frame, three timed
+        before = (fused_mlp2.launches, fused_mlp3.launches)
+        t0 = time.perf_counter()
+        out = tr.render_image(rays, H, W)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        got = (fused_mlp2.launches - before[0], fused_mlp3.launches - before[1])
+        if got != (n_chunks, n_chunks):
+            raise AssertionError(f"NGP frame {i}: {got} tiny-MLP launches, expected {n_chunks} of each")
+        if i:
+            frame_ms.append(dt)
+    launches = {"fused_mlp2_fwd": fused_mlp2.launches, "fused_mlp3_fwd": fused_mlp3.launches}  # the main path ends here
+    if sorted(out) != ["acc", "rgb"]:  # HashNerfNetwork has no disp; the default keys skip it
+        raise AssertionError(f"NGP render returned {sorted(out)}")
+    for k, v in out.items():
+        if v.shape[:2] != (H, W) or not np.isfinite(v).all():
+            raise AssertionError(f"ngp {k}: shape {v.shape} or non-finite values")
+
+    # live samples per chunk (the march alone): no chunk may overflow the budget,
+    # or the frame drops samples that the CPU crop, a chunk of its own, keeps
+    enet = tr.eval_network
+    live = []
+    with torch.inference_mode():
+        for s0 in range(0, n_rays, chunk):
+            o = torch.from_numpy(rays["rays_o"][s0:s0 + chunk]).cuda()
+            d = torch.from_numpy(rays["rays_d"][s0:s0 + chunk]).cuda()
+            m = march_rays(None, o, d, enet.grid, n_candidates=enet.n_candidates, n_keep=enet.n_keep,
+                           cone_angle=enet.cone_angle, res=enet.grid_res)
+            live.append(m.mask.sum())
+        live = torch.stack(live).cpu().numpy()
+    budget = model_cfg["sample_budget"]
+    if live.max() > budget:
+        raise AssertionError(f"a chunk holds {int(live.max())} live samples, over the budget {budget}")
+
+    cpu_net = build_network(model_cfg, device="cpu")
+    cpu_net.load_state_dict(torch.load(pt, map_location="cpu", weights_only=True))
+    ys = slice(H // 2 - 16, H // 2 + 16)
+    crop = {k: v.reshape(H, W, 3)[ys, ys].reshape(-1, 3) for k, v in rays.items()}
+    t0 = time.perf_counter()
+    cpu_out = render_image(cpu_net, crop, 32, 32, chunk=chunk)
+    cpu_s = time.perf_counter() - t0
+    crop_psnr = float(psnr(out["rgb"][ys, ys], cpu_out["rgb"]))
+    if not crop_psnr >= 40.0:
+        raise AssertionError(f"NGP card vs CPU plain path on the 32x32 crop: {crop_psnr} dB < 40 dB")
+    ms_frame = float(np.median(frame_ms))
+    emit({"phase": "ngp_slice", "config": "configs/instant_ngp/ngp_blender.py", "fused": True, "load_from": True,
+          "ema_copy": tr.ema_network is not None, "H": H, "W": W, "eval_chunk": chunk,
+          "frames_timed": len(frame_ms), "ms_per_frame": ms_frame, "frame_ms": frame_ms,
+          "rays_per_s": n_rays / (ms_frame * 1e-3), "samples_per_s": float(live.sum()) / (ms_frame * 1e-3),
+          "launches_per_frame": {"fused_mlp2_fwd": n_chunks, "fused_mlp3_fwd": n_chunks}, "launches": launches,
+          "rows_per_launch": min(budget, chunk * model_cfg["n_keep"]),
+          "live_fraction": float(live.sum()) / (n_rays * model_cfg["n_keep"]),
+          "max_chunk_live_over_budget": float(live.max()) / budget,
+          "rgb_mean": float(out["rgb"].mean()), "rgb_std": float(out["rgb"].std()),
+          "acc_mean": float(out["acc"].mean()), "crop_acc_mean": float(cpu_out["acc"].mean()),
+          "crop_psnr_vs_cpu_db": crop_psnr, "cpu_crop_s": cpu_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # profiled frame and host syncs of one chunk (after the main path's counts were read);
+    # "gather" is every index_select / gather kernel: per chunk the 16 hash gathers, the
+    # march's three and the compaction's four
+    groups = {"tiny_mlp": ["tiny_mlp_fwd_kernel"], "gather": ["scatter_gather", "indexSelect", "vectorized_gather"],
+              "sort": ["sort", "Sort", "radix", "Radix"]}
+    emit(profile_device(lambda: tr.render_image(rays, H, W), ms_frame, "ngp_profile", groups, top=12))
+    mid = (n_chunks // 2) * chunk
+    cb = {k: torch.from_numpy(v[mid:mid + chunk]).cuda() for k, v in rays.items()}
+    n_syncs, inside = count_host_syncs(enet, cb)
+    emit({"phase": "ngp_syncs", "rays": chunk, "cudaStreamSynchronize": n_syncs, "inside": inside})
+    del tr, enet, cb, out
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -411,7 +705,7 @@ def main() -> int:
     from xrnerf_torch.ops import build
     from xrnerf_torch.ops.fused_nerf_mlp import fused_nerf_mlp_fwd, fused_nerf_mlp_ref, pack_params
     from xrnerf_torch.utils.metrics import psnr
-    from xrnerf_torch.utils.weights import nerf_state_dict_from_jax
+    from xrnerf_torch.utils.weights import state_dict_from_jax
 
     # 1. device
     smi = subprocess.run(
@@ -428,7 +722,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    names = ["fused_nerf_mlp_fwd", "fused_nerf_mlp_bwd"]
+    names = ["fused_nerf_mlp_fwd", "fused_nerf_mlp_bwd", "fused_mlp_fwd"]
     build.load_libraries(names)
     ptxas = {}
     for name in names:
@@ -440,7 +734,7 @@ def main() -> int:
     # 3. kernel against its plain version
     rng = np.random.RandomState(SEED)
     mlp_sd = {k: torch.from_numpy(v).to(dev) for k, v in
-              nerf_state_dict_from_jax(seeded_mlp_tree(rng)).items()}
+              state_dict_from_jax(seeded_mlp_tree(rng)).items()}
     packed = pack_params(mlp_sd, 63, 27)
     lib_p = library_params(packed)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -478,7 +772,7 @@ def main() -> int:
     cfg = load_config(os.path.join(ROOT, "configs", "nerf", "nerf_blender.py"), dataname="lego")
     model_cfg = dict(cfg["model"], fused=True)
     chunk = int(cfg["eval_chunk"])
-    net_sd = nerf_state_dict_from_jax(
+    net_sd = state_dict_from_jax(
         {"mlp_coarse": seeded_mlp_tree(rng), "mlp_fine": seeded_mlp_tree(rng)}
     )
     tr = Trainer(build_network(model_cfg, device="cuda"), dataset=None, work_dir=None,
@@ -557,7 +851,17 @@ def main() -> int:
     # 7. training gradients, card against CPU
     emit(train_grads_phase(model_cfg, net_sd))
 
-    # 8. kernels
+    # 8. the tiny-MLP kernels against their plain versions
+    tiny_rows = tiny_mlp_phase(dev, gen)
+
+    # 9, 10. Instant-NGP serving at full width
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_ngp_")
+    try:
+        ngp_launches = ngp_phases(work_dir)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+    # 11. kernels
     k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
     keys = ("rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
@@ -570,6 +874,11 @@ def main() -> int:
          "launches": train_launches["fused_nerf_mlp_bwd"],
          "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
          "min_cos": min(r["min_cos"] for r in bwd_rows.values()), **{k: b1[k] for k in keys}},
+        *({"name": name, "route": "cuda", "source": "xrnerf_torch/csrc/fused_mlp_fwd.cu",
+           "replaces": f"xrnerf_tpu/ops/pallas/fused_mlp.py:{line}", "launches": ngp_launches[name],
+           "max_abs_err": max(r["max_abs_err"] for r in tiny_rows[name].values()),
+           **{k: tiny_rows[name][262_144][k] for k in keys}}
+          for name, line in (("fused_mlp2_fwd", 64), ("fused_mlp3_fwd", 184))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

@@ -29,7 +29,7 @@ from xrnerf_torch.ops.fused_nerf_mlp import (  # noqa: E402
 )
 from xrnerf_torch.utils.weights import (  # noqa: E402
     jax_params_from_state_dict,
-    nerf_state_dict_from_jax,
+    state_dict_from_jax,
 )
 
 RTOL, ATOL = 2e-2, 8e-3
@@ -53,7 +53,7 @@ def _flax_params(width, seed, n=8):
 
 def _torch_mlp(params, width, fused=False):
     mlp = NerfMLP(netwidth=width, fused=fused)
-    mlp.load_state_dict({k: torch.from_numpy(v) for k, v in nerf_state_dict_from_jax(params).items()})
+    mlp.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict_from_jax(params).items()})
     return mlp
 
 
@@ -97,7 +97,7 @@ def test_fused_plain_matches_jax_fused(n):
     _, params = _flax_params(256, seed=3)
     x, v = _data(n, seed=n)
     want_rgb, want_sigma = jfused(x, v, params)
-    sd = {k: torch.from_numpy(a) for k, a in nerf_state_dict_from_jax(params).items()}
+    sd = {k: torch.from_numpy(a) for k, a in state_dict_from_jax(params).items()}
     rgb, sigma = fused_nerf_mlp_fwd(torch.from_numpy(x), torch.from_numpy(v), pack_params(sd, 63, 27))
     assert rgb.shape == (n, 3) and sigma.shape == (n,)
     np.testing.assert_allclose(rgb.numpy(), np.asarray(want_rgb), rtol=RTOL, atol=ATOL)

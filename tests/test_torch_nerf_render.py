@@ -23,7 +23,7 @@ from xrnerf_tpu.models.networks.nerf import NerfNetwork as JNerfNetwork  # noqa:
 from xrnerf_torch import build_dataset, build_network  # noqa: E402
 from xrnerf_torch.core.renderer import render_image  # noqa: E402
 from xrnerf_torch.models.samplers.pdf import sample_pdf as real_sample_pdf  # noqa: E402
-from xrnerf_torch.utils.weights import nerf_state_dict_from_jax  # noqa: E402
+from xrnerf_torch.utils.weights import state_dict_from_jax  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NET_KW = dict(n_samples=16, n_importance=16, netdepth=8, netwidth=64)
@@ -57,7 +57,7 @@ def _pair(fused, seed=0, **kw):
     init = jax.jit(lambda key, b: jnet.init(key, b, rng=None, train=False))  # jit: ~3x faster than eager
     params = jax.tree_util.tree_map(np.asarray, init(jax.random.PRNGKey(seed), _batch(8))["params"])
     net = build_network(dict(type="NerfNetwork", **cfg), device="cpu")
-    net.load_state_dict({k: torch.from_numpy(v) for k, v in nerf_state_dict_from_jax(params).items()})
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict_from_jax(params).items()})
     return jnet, params, net
 
 
@@ -205,7 +205,7 @@ data = dict(type="SceneDataset", datadir=r"{synthetic_scene}", N_rand=32, testsk
     jres = json.load(open(tmp_path / "jax" / "test" / "test_results.json"))
     params = jax.tree_util.tree_map(np.asarray, jtr.state.params)
     pt = tmp_path / "weights.pt"
-    torch.save({k: torch.from_numpy(v) for k, v in nerf_state_dict_from_jax(params).items()}, pt)
+    torch.save({k: torch.from_numpy(v) for k, v in state_dict_from_jax(params).items()}, pt)
 
     out = subprocess.run(
         [sys.executable, "-m", "xrnerf_torch.run_nerf", "--config", str(cfg), "--dataname", "sphere",

@@ -17,6 +17,12 @@ PORT = os.path.join(ROOT, "xrnerf_torch")
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "xrnerf_tpu"}
 
 
+NGP_MODULES = (
+    "ops.fused_mlp", "models.embedders.sh", "models.embedders.hashenc", "models.fields.ngp_mlp",
+    "models.samplers.occupancy", "models.samplers.ngp_march", "models.networks.hashnerf", "datasets.hashnerf",
+)
+
+
 def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(PORT):
@@ -36,6 +42,7 @@ def test_import_leaves_jax_out_of_sys_modules():
     """Importing the port and every submodule pulls in none of them."""
     mods = _submodules()
     assert "xrnerf_torch.ops.fused_nerf_mlp" in mods and "xrnerf_torch.run_nerf" in mods
+    assert {f"xrnerf_torch.{m}" for m in NGP_MODULES} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
@@ -96,3 +103,30 @@ def test_cli_refuses_cuda_without_a_card(tmp_path):
     )
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_nerf.main(["--config", str(cfg), "--test_only"])
+
+
+@pytest.mark.parametrize("module", NGP_MODULES)
+def test_ngp_module_stands_alone(module):
+    """Each Instant-NGP module is among the checked sources and imports
+    neither JAX nor the JAX package."""
+    path = os.path.join(PORT, *module.split(".")) + ".py"
+    assert path in _port_sources()
+    test_source_imports_nothing_of_jax(path)
+
+
+def test_ngp_entry_points_need_a_card_or_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; the refusal is for hosts without one")
+    from xrnerf_torch import DATASETS, HOOKS, NETWORKS, build_network
+    from xrnerf_torch.core.trainer import Trainer
+
+    assert "HashNerfNetwork" in NETWORKS and "HashNerfDataset" in DATASETS and "SampleBudgetHook" in HOOKS
+    cfg = dict(type="HashNerfNetwork", n_levels=2, log2_table_size=8, base_res=4, max_res=8, grid_res=8,
+               n_candidates=8, n_keep=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_network(cfg)
+    net = build_network(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(net, None, work_dir=None)
+    tr = Trainer(net, None, work_dir=None, device="cpu")
+    assert tr.network.grid_bitfield.device.type == "cpu" and bool(tr.network.grid_bitfield.all())

@@ -37,7 +37,7 @@ from xrnerf_torch.ops.fused_nerf_mlp import (  # noqa: E402
     pack_params_f32,
 )
 from xrnerf_torch.utils import checkpoint as ckpt  # noqa: E402
-from xrnerf_torch.utils.weights import jax_params_from_state_dict, nerf_state_dict_from_jax  # noqa: E402
+from xrnerf_torch.utils.weights import jax_params_from_state_dict, state_dict_from_jax  # noqa: E402
 
 
 def _cos(a, b):
@@ -69,7 +69,7 @@ def _flax_mlp(width, seed):
 
 def _torch_mlp(params, width, fused=True):
     mlp = NerfMLP(netwidth=width, fused=fused)
-    mlp.load_state_dict({k: torch.from_numpy(v) for k, v in nerf_state_dict_from_jax(params).items()})
+    mlp.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict_from_jax(params).items()})
     return mlp
 
 
@@ -133,7 +133,7 @@ def test_bwd_ref_matches_autograd_of_plain_forward():
     largest entry (dv). Bound: cosine > 0.9999, error <= 2e-2 of the
     largest entry."""
     params = _flax_mlp(256, seed=6)
-    sd = {k: torch.from_numpy(a) for k, a in nerf_state_dict_from_jax(params).items()}
+    sd = {k: torch.from_numpy(a) for k, a in state_dict_from_jax(params).items()}
     p16 = pack_params(sd, 63, 27)
     # f32 leaves holding the bf16 values, so the plain forward's own
     # .float() of the weights is exact and differentiable
@@ -179,7 +179,7 @@ def test_autograd_op_routes_grads_and_guards_dtype():
 
 def test_bwd_wrapper_rejects_bad_g():
     params = _flax_mlp(64, seed=11)
-    sd = {k: torch.from_numpy(a) for k, a in nerf_state_dict_from_jax(params).items()}
+    sd = {k: torch.from_numpy(a) for k, a in state_dict_from_jax(params).items()}
     x, v = (torch.from_numpy(a) for a in _data(5, seed=12))
     with pytest.raises(ValueError, match="g"):
         fused_nerf_mlp_bwd(x, v, torch.zeros(5, 3), pack_params(sd, 63, 27))
@@ -221,7 +221,7 @@ def test_network_train_step_matches_jax(fused):
 
     jl, jg = jax.jit(jax.value_and_grad(jloss))(params)
     net = build_network(dict(type="NerfNetwork", **kw), device="cpu")
-    net.load_state_dict({k: torch.from_numpy(a) for k, a in nerf_state_dict_from_jax(params).items()})
+    net.load_state_dict({k: torch.from_numpy(a) for k, a in state_dict_from_jax(params).items()})
     tb = {k: torch.from_numpy(a) for k, a in batch.items()}
     loss, _ = net.loss(net(tb, generator=torch.Generator().manual_seed(7), train=True), tb)
     loss.backward()

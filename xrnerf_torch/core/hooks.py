@@ -1,6 +1,6 @@
 """Hook protocol + the standard hooks — port of ``xrnerf_tpu/core/hooks.py``
 (``ValidateHook``, ``TestHook``, ``SaveSpiralHook``, ``OccupationHook``,
-``ElapsedTimeHook``, ``ProfileHook``). Images are written only when
+``ElapsedTimeHook``, ``ProfileHook``, ``SampleBudgetHook``). Images are written only when
 ``save_img`` is set, and ``imageio`` is imported only then.
 """
 
@@ -173,6 +173,43 @@ class OccupationHook(Hook):
         if not os.path.isdir(os.path.join(tr.work_dir, self.marker)):
             get_logger().info("kill-switch dir removed; stopping at step %d", step)
             tr.request_stop()
+
+
+@HOOKS.register
+class SampleBudgetHook(Hook):
+    """Bucketed replacement for Instant-NGP's dynamic batch adaptation
+    (resize the ray batch so live samples per step hit ``target_samples``):
+    the ray batch moves between a fixed set of power-of-two buckets based on
+    the EMA of the network's logged ``live_frac`` (live samples /
+    (rays * n_keep)), so every step sees one of a few static shapes."""
+
+    def __init__(self, target_samples: int = 2**18, buckets=(1024, 2048, 4096, 8192, 16384), ema: float = 0.8):
+        self.target = int(target_samples)
+        self.buckets = tuple(sorted(int(b) for b in buckets))
+        self.ema = float(ema)
+        self._frac = None
+
+    def pick(self, n_keep: int) -> int:
+        """Largest bucket whose full-budget sample count stays within target."""
+        frac = max(self._frac if self._frac is not None else 1.0, 1e-3)
+        needed = self.target / (frac * max(n_keep, 1))
+        fitting = [b for b in self.buckets if b <= needed]
+        return fitting[-1] if fitting else self.buckets[0]
+
+    def after_step(self, tr: "Trainer", step: int, logs) -> None:
+        if step % tr.log_interval != 0:
+            return
+        live = tr.last_logs.get("live_frac") if tr.last_logs else None
+        if live is None:
+            return
+        self._frac = live if self._frac is None else self.ema * self._frac + (1 - self.ema) * live
+        n_keep = int(getattr(tr.network, "n_keep", 0) or 0)
+        if n_keep <= 0 or not hasattr(tr.dataset, "N_rand"):
+            return
+        chosen = self.pick(n_keep)
+        if chosen != tr.dataset.N_rand:
+            tr.logger.info("SampleBudgetHook: live_frac %.3f -> N_rand %d -> %d", self._frac, tr.dataset.N_rand, chosen)
+            tr.dataset.N_rand = chosen
 
 
 @HOOKS.register

@@ -4,7 +4,10 @@
 Rays are padded to a whole number of chunks by repeating the last ray, so
 every call to the network sees the same shape; each chunk is moved to the
 model's device, and the results stay there until one copy back to numpy at
-the end. KiloNeRF's ``active_fn`` culling and multi-GPU meshes are not
+the end. ``keys`` names the outputs to keep; one that the network does not
+return is left out of the result (``HashNerfNetwork`` returns ``depth``
+and no ``disp``, so the default keys give its ``rgb`` and ``acc``; pass
+``"depth"`` for its depth map). KiloNeRF's ``active_fn`` culling and multi-GPU meshes are not
 ported yet.
 """
 

@@ -11,9 +11,16 @@ scheduler, EMA) or loads a ``.pt`` state dict (``load_from``).
 
 Each step draws its randomness from a generator on the network's device
 seeded from ``(seed, step)``, so a resumed run takes the steps a straight
-run would. The mesh, ``init_aux``/``update_aux``, ``trainable_filter`` and
-``param_loss`` protocols of the JAX trainer (NGP, KiloNeRF, AniNeRF,
-multi-GPU) come with those slices.
+run would.
+
+The serving half of the JAX trainer's aux protocol is here: a network with
+``init_aux`` (Instant-NGP's occupancy grid) has it called at construction
+with the dataset, before any checkpoint or ``load_from`` file is read. The
+network holds that state as buffers, so its ``state_dict`` carries it into
+checkpoints and weight files, and ``render_image`` marches through what was
+restored. Calling ``update_aux`` every ``aux_interval`` steps inside
+``run``, and the mesh, ``trainable_filter`` and ``param_loss`` protocols
+(KiloNeRF, AniNeRF, multi-GPU), come with those slices.
 """
 
 from __future__ import annotations
@@ -128,6 +135,8 @@ class Trainer:
         self._stop = False
 
         self.network.reset_parameters(torch.Generator().manual_seed(seed))
+        if hasattr(self.network, "init_aux"):
+            self.network.init_aux(dataset)
         opt_cfg = dict(optimizer or {})
         opt_cfg.setdefault("max_steps", max_iters)
         self.optimizer, self.scheduler, self.grad_clip = build_optimizer(self.network.parameters(), opt_cfg)

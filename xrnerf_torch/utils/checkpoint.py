@@ -1,7 +1,8 @@
 """Checkpoint save/restore — port of ``xrnerf_tpu/utils/checkpoint.py``.
 
 ``save`` writes ``work_dir/ckpt_{step}.pt`` with ``torch.save`` (model,
-optimizer, scheduler, EMA and step, as the trainer passes them), through a
+optimizer, scheduler, EMA and step, as the trainer passes them; a network's
+buffers, such as Instant-NGP's occupancy grid, ride in its state dict), through a
 temporary file and an atomic ``os.replace``, and keeps the last ``keep``
 checkpoints. ``load`` reads one back onto ``map_location``. Reading the JAX
 package's ``.msgpack`` checkpoints is not ported (the card's machine has

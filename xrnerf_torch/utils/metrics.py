@@ -1,7 +1,7 @@
 """Image/quality metrics in torch.
 
 Port of ``xrnerf_tpu/utils/metrics.py:18-101``: ``img2mse``/``mse2psnr``/
-``psnr``/``to8b`` and the Gaussian-windowed SSIM. Functions take tensors
+``psnr``/``to8b``/``huber`` and the Gaussian-windowed SSIM. Functions take tensors
 or numpy arrays (numpy is read as float32 on the CPU) and return tensors.
 LPIPS is not ported yet.
 """
@@ -36,6 +36,13 @@ def to8b(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     return (255 * np.clip(np.asarray(x), 0.0, 1.0)).astype(np.uint8)
+
+
+def huber(pred, target, delta: float = 0.1) -> torch.Tensor:
+    """Mean Huber loss (Instant-NGP's HuberLoss)."""
+    abs_err = (_t(pred) - _t(target)).abs()
+    quad = abs_err.clamp(max=delta)
+    return (0.5 * quad**2 + delta * (abs_err - quad)).mean()
 
 
 def ssim(
