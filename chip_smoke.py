@@ -7,8 +7,9 @@ Phases, each printed as one JSON line:
 
 1. device  - the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build   - the CUDA kernels ``xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu``,
-             ``fused_nerf_mlp_bwd.cu`` and ``fused_mlp_fwd.cu``, one nvcc
-             each, started together; ptxas registers and spills.
+             ``fused_nerf_mlp_bwd.cu``, ``fused_mlp_fwd.cu``,
+             ``fused_mlp_bwd.cu`` and ``scatter_rows.cu``, one nvcc each,
+             started together; ptxas registers and spills.
 3. kernel  - ``fused_nerf_mlp_fwd`` against its plain version on the card
              at width 256 with seeded weights, for N = 1000 (ragged tile),
              1,048,576 (one coarse chunk) and 3,145,728 (one fine chunk),
@@ -69,7 +70,41 @@ Phases, each printed as one JSON line:
              >= 40 dB PSNR. Then one frame under torch.profiler
              (``ngp_profile``: the kernels', the gather's and the sorts'
              share) and the count of host syncs in one chunk (``ngp_syncs``).
-11. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+11. kernel (tiny-MLP backwards) - ``fused_mlp2_bwd`` and ``fused_mlp3_bwd``
+             against their plain versions at the same shapes and N: per leaf
+             (dx and every weight and bias gradient) cosine > 0.99 and norm
+             ratio 0.93-1.07, dx also with more than 99 % of its values
+             within 3 % of its scale, the same bits on a second launch;
+             kernel, plain-version and library times (autograd backward of
+             the bf16 ``F.linear`` chain), L2-cold, behind the spin kernel.
+12. kernel (scatter) - ``scatter_add_rows`` against its plain version
+             (rtol 1e-4, atol 1e-4 of the largest row sum: atomics add in
+             another order every run) for the finest hashed vertex level
+             (2,097,152 x 2 rows into 524,288, indices of random points),
+             the coarsest dense level (into 4,096), the brick shape
+             (262,144 x 16 into 65,536, 70 % all-zero rows, skipped) and
+             1000 rows with negative ids; library time: ``index_add_``.
+13. ngp_train - ``Trainer.run`` trains Instant-NGP at full width (fused, the
+             config's Adam and EMA, ``N_rand`` 4096) for 64 steps on the
+             analytic sphere seen from the 40 orbit cameras, in
+             ``HashNerfDataset``'s batch format: grid refreshes before steps
+             0, 16, 32, 48; per step exactly one forward and one backward
+             launch of each tiny MLP and 16 scatters, one more ``fused_mlp2``
+             forward per refresh; falling loss, finite logs, the EMA copy's
+             grid equal to the network's; a checkpoint and a resume to step
+             66. ``ngp_train_compacted``: 8 more steps from the checkpoint at
+             ``N_rand`` 16,384, four times the sample budget, so the
+             compaction and its backward run.
+14. ngp_train_grads - the trained weights and grid, 256 rays, deterministic
+             march: the card path's gradients against the CPU path's, per
+             leaf (the hash table included) cosine > 0.97, norm ratio
+             0.93-1.07.
+15. ngp_train_profile - one step under torch.profiler by kernel group, the
+             Adam step and the EMA update timed alone, and the count of host
+             syncs in a step (must be 0).
+16. ngp_brick_train - ``hash_layout="brick"``, one lattice, full width: 16
+             steps, 16 scatters per step, finite and falling loss.
+17. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 2.
@@ -111,6 +146,11 @@ TINY_SHAPES = {"fused_mlp2_fwd": (32, 64, 16), "fused_mlp3_fwd": (31, 64, 64, 3)
 # trained scene, and no render chunk overflows the sample budget).
 NGP_TABLE_SCALE, NGP_SIGMA_SCALE, NGP_SHARE_ABOVE = 1e4, 50.0, 0.10
 NGP_REFRESHES = 16
+TINY_BWD_SHAPES = {"fused_mlp2_bwd": (32, 64, 16), "fused_mlp3_bwd": (31, 64, 64, 3)}
+NGP_TRAIN_STEPS, NGP_TRAIN_LOG, NGP_AUX_INTERVAL = 64, 16, 16
+NGP_COMPACT_STEPS, NGP_COMPACT_RAND = 8, 16_384  # 4x the sample budget in candidates' kept samples
+NGP_BRICK_STEPS = 16  # two logging windows of 8
+SCATTER_RTOL = 1e-4  # and atol 1e-4 of the largest row sum: f32 atomics add in another order every run
 
 
 def emit(obj) -> None:
@@ -216,7 +256,8 @@ def profile_device(run, wall_ms, phase, groups=None, top=8):
     kernel (the ``top`` largest), the fused kernels' part, and the device's idle share
     against ``wall_ms``, the unprofiled time of the same work (the profiler
     slows the host, so its own wall time overstates idleness). ``groups``
-    ({label: substrings of kernel names}) adds each group's device time."""
+    ({label: substrings of kernel names, or a predicate on the name}) adds
+    each group's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -236,11 +277,13 @@ def profile_device(run, wall_ms, phase, groups=None, top=8):
     bwd_ms = sum(ms for k, ms, _ in by_kernel if "fused_nerf_mlp_bwd" in k)
     line = {"phase": phase, "profiled_wall_ms": prof_wall_ms, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "kernel_launches": sum(c for _, _, c in by_kernel),
             "fused_mlp_ms": fwd_ms, "fused_mlp_bwd_ms": bwd_ms,
             "fused_share_of_busy": (fwd_ms + bwd_ms) / busy_ms if busy_ms else 0.0,
             "top": [{"name": k[:100], "ms": ms, "calls": c} for k, ms, c in by_kernel[:top]]}
     for label, subs in (groups or {}).items():
-        g_ms = sum(ms for k, ms, _ in by_kernel if any(sub in k for sub in subs))
+        match = subs if callable(subs) else (lambda k, subs=subs: any(sub in k for sub in subs))
+        g_ms = sum(ms for k, ms, _ in by_kernel if match(k))
         line[f"{label}_ms"] = g_ms
         line[f"{label}_share_of_busy"] = g_ms / busy_ms if busy_ms else 0.0
     return line
@@ -282,13 +325,18 @@ class SphereScene:
         self.poses = spherical_render_poses(40, phi=-30.0, radius=4.0)
 
     @staticmethod
-    def colour(o, d):
+    def trace(o, d):
+        """(colour [n, 3], hit [n]) of the rays o + t d."""
         a, b = (d * d).sum(-1), 2 * (o * d).sum(-1)
         disc = b * b - 4 * a * (o * o).sum(-1) + 4 * a  # radius 1
         t = (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a)
         hit = (disc > 0) & (t > 0)
         normal = o + t[:, None] * d
-        return np.where(hit[:, None], 0.5 + 0.5 * normal, 1.0).astype(np.float32)
+        return np.where(hit[:, None], 0.5 + 0.5 * normal, 1.0).astype(np.float32), hit
+
+    @classmethod
+    def colour(cls, o, d):
+        return cls.trace(o, d)[0]
 
     def train_batch(self, step, host_id=0, num_hosts=1):
         from xrnerf_torch.datasets.rays import get_rays_np
@@ -527,15 +575,15 @@ class OrbitCameras:
         self.i_train = np.arange(len(self.poses_ngp))
 
 
-def count_host_syncs(model, batch):
-    """``cudaStreamSynchronize`` calls inside one ``model(batch)`` (the batch
+def count_host_syncs(run):
+    """``cudaStreamSynchronize`` calls inside one ``run()`` (its inputs
     already on the card), and the ops the first few ran inside."""
     from torch.profiler import ProfilerActivity, profile
 
-    model(batch, train=False)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model(batch, train=False)
+        run()
     torch.cuda.synchronize()
     events = list(prof.events())
     syncs = [e for e in events if e.name == "cudaStreamSynchronize"]
@@ -685,11 +733,397 @@ def ngp_phases(work_dir):
     emit(profile_device(lambda: tr.render_image(rays, H, W), ms_frame, "ngp_profile", groups, top=12))
     mid = (n_chunks // 2) * chunk
     cb = {k: torch.from_numpy(v[mid:mid + chunk]).cuda() for k, v in rays.items()}
-    n_syncs, inside = count_host_syncs(enet, cb)
+    n_syncs, inside = count_host_syncs(lambda: enet(cb, train=False))
     emit({"phase": "ngp_syncs", "rays": chunk, "cudaStreamSynchronize": n_syncs, "inside": inside})
     del tr, enet, cb, out
     torch.cuda.empty_cache()
     return launches
+
+
+def bound(flop, nbytes):
+    """(bound_ms, bound_by): the larger of the operations over the bf16 peak
+    and the bytes over the memory rate."""
+    t_ops, t_bytes = flop / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tiny_mlp_bwd_phase(dev, gen):
+    """The two tiny-MLP backward kernels against their plain versions;
+    returns their rows by kernel name and N."""
+    import torch.nn.functional as F
+
+    from xrnerf_torch.ops import fused_mlp as fm
+
+    fns = {"fused_mlp2_bwd": (fm.fused_mlp2_bwd, fm.fused_mlp2_bwd_plain),
+           "fused_mlp3_bwd": (fm.fused_mlp3_bwd, fm.fused_mlp3_bwd_plain)}
+    rng = np.random.RandomState(SEED + 4)
+    rows = {}
+    for name, shape in TINY_BWD_SHAPES.items():
+        fn, plain = fns[name]
+        params = []  # w1 [in, out], b1, w2, b2, ...: lecun-scaled kernels, small biases
+        for i, o in zip(shape[:-1], shape[1:]):
+            params += [torch.from_numpy((rng.standard_normal((i, o)) / math.sqrt(i)).astype("float32")).to(dev),
+                       torch.from_numpy((0.1 * rng.standard_normal(o)).astype("float32")).to(dev)]
+        args = params[:-1]  # the last bias does not enter the backward
+        leaf_names = ["dx"] + [f"d{k}{i}" for i in range(1, len(shape)) for k in "wb"]
+        lib = [(w.t().to(torch.bfloat16).contiguous().requires_grad_(), b.to(torch.bfloat16).requires_grad_())
+               for w, b in zip(params[::2], params[1::2])]
+
+        def library_graph(x):  # the yardstick: a bf16 F.linear (cuBLAS) chain under autograd, never called by the port
+            h = x.to(torch.bfloat16)
+            for j, (w, b) in enumerate(lib):
+                h = F.linear(h, w, b)
+                if j < len(lib) - 1:
+                    h = F.relu(h)
+            return h.float()
+
+        rows[name] = {}
+        for n in TINY_ROWS:
+            # four input sets, walked in turn, so each call finds the L2 cold
+            xs = [(torch.rand((n, shape[0]), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16).float()
+                  for _ in range(4)]
+            gs = [torch.randn((n, shape[-1]), generator=gen, device=dev) / n for _ in range(4)]
+            turn = [0]
+
+            def walk(f):
+                def call():
+                    turn[0] += 1
+                    return f(xs[turn[0] % 4], *args, gs[turn[0] % 4])
+                return call
+
+            got, want = fn(xs[0], *args, gs[0]), plain(xs[0], *args, gs[0])
+            torch.cuda.synchronize()
+            per_leaf = check_leaves(f"{name} N={n}", dict(zip(leaf_names, got)), dict(zip(leaf_names, want)), GRAD_COS)
+            scale = float(want[0].abs().max()) + 1e-30
+            dx_share = float(((got[0] - want[0]).abs() / scale < 0.03).float().mean())
+            if not dx_share > 0.99:
+                raise AssertionError(f"{name} N={n}: only {dx_share} of dx within 3 % of its scale")
+            if not all(torch.equal(a, b) for a, b in zip(fn(xs[0], *args, gs[0]), got)):
+                raise AssertionError(f"{name} N={n}: a second launch gave other bits")
+            ms = time_ms(walk(fn), inner=20, head_start_ms=4.0)
+            plain_ms = time_ms(walk(plain), inner=4, head_start_ms=4.0)
+            inputs = [t for wb in lib for t in wb]
+            graphs = []
+            for x, g in zip(xs, gs):
+                xg = x.detach().requires_grad_()
+                graphs.append((library_graph(xg), [xg] + inputs, g))
+
+            def library_bwd():
+                turn[0] += 1
+                out, leaves, g = graphs[turn[0] % 4]
+                return torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+            library_ms = time_ms(library_bwd, inner=4, head_start_ms=4.0)
+            widths = list(zip(shape[:-1], shape[1:]))
+            # recompute, data gradients (every layer's dh, dx included), weight gradients
+            flop = 2 * n * (sum(i * o for i, o in widths[:-1]) + 2 * sum(i * o for i, o in widths))
+            nbytes = 4 * (n * (2 * shape[0] + shape[-1]) + sum(p.numel() for p in args) + sum(p.numel() for p in params))
+            bound_ms, bound_by = bound(flop, nbytes)
+            row = {"phase": "kernel", "name": name, "shape": list(shape), "rows": n,
+                   "min_cos": min(r["cos"] for r in per_leaf.values()), "dx_share_within_3pct": dx_share,
+                   "max_abs_err": max(r["max_abs_err"] for r in per_leaf.values()), "deterministic": True,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "bytes": nbytes, "flop": flop, "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+                   "roofline_share": bound_ms / ms,
+                   "leaves": {k: [round(r["cos"], 6), round(r["ratio"], 5)] for k, r in per_leaf.items()}}
+            emit(row)
+            rows[name][n] = row
+            del xs, gs, got, want, graphs
+            torch.cuda.empty_cache()
+    return rows
+
+
+def scatter_phase(dev, gen, model_cfg):
+    """``scatter_add_rows`` against its plain version at the shapes the
+    Instant-NGP step gives it; returns its rows by case."""
+    from xrnerf_torch.models.embedders.hashenc import HashEncoding, _corner_weights
+    from xrnerf_torch.ops.scatter_rows import scatter_add_rows, scatter_add_rows_plain
+
+    n_pts = N_RAND * model_cfg["n_keep"]  # 262,144 field rows per step
+    enc = HashEncoding(**{k: model_cfg[k] for k in ("n_levels", "n_features", "log2_table_size", "base_res", "max_res")}).to(dev)
+    cases = {}
+
+    def vertex_case(level):
+        """Two input sets of the level's real corner indices and update rows."""
+        sets = []
+        for _ in range(2):
+            idx, t = enc._corner_cells(torch.rand((n_pts, 3), generator=gen, device=dev))
+            g = torch.randn((n_pts, enc.n_features), generator=gen, device=dev)
+            vals = (_corner_weights(t[level:level + 1], dim=1)[0][..., None] * g[None]).reshape(8 * n_pts, -1)
+            sets.append((idx[level].reshape(-1).clone(), vals.contiguous()))  # a copy: the other levels are freed
+        return sets, min(enc.resolutions[level] ** 3, enc.table_size), False
+
+    def brick_case():
+        sets = []
+        for _ in range(2):
+            vals = torch.randn((n_pts, 8 * enc.n_features), generator=gen, device=dev)
+            vals[torch.rand(n_pts, generator=gen, device=dev) < 0.7] = 0.0  # dead samples
+            sets.append((torch.randint(0, enc.table_size // 8, (n_pts,), generator=gen, device=dev), vals))
+        return sets, enc.table_size // 8, True
+
+    def small_case():
+        idx = torch.randint(0, 300, (1000,), generator=gen, device=dev)
+        idx[torch.rand(1000, generator=gen, device=dev) < 0.2] = -1
+        return [(idx, torch.randn((1000, 2), generator=gen, device=dev))] * 2, 300, False
+
+    makers = {"vertex_hashed": lambda: vertex_case(enc.n_levels - 1), "vertex_dense_coarsest": lambda: vertex_case(0),
+              "brick": brick_case, "small_negative_ids": small_case}
+    for case, make in makers.items():
+        sets, num_rows, skip = make()
+        idx, vals = sets[0]
+        got = scatter_add_rows(idx, vals, num_rows, skip_zero_rows=skip)
+        want = scatter_add_rows_plain(idx, vals, num_rows, skip_zero_rows=skip)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"scatter {case}: non-finite kernel output")
+        err = (got - want).abs()
+        bar = SCATTER_RTOL * float(want.abs().max()) + SCATTER_RTOL * want.abs()
+        if bool((err > bar).any()):
+            raise AssertionError(f"scatter {case}: {int((err > bar).sum())} of {err.numel()} sums off; max abs err {float(err.max())}")
+        got32 = scatter_add_rows(idx.int(), vals, num_rows, skip_zero_rows=skip)  # the int32 entry point
+        if bool(((got32 - want).abs() > bar).any()):
+            raise AssertionError(f"scatter {case}: int32 ids disagree")
+        turn = [0]
+
+        def walk(f, **kw):
+            def call():
+                turn[0] += 1
+                i, v = sets[turn[0] % 2]
+                return f(i, v, num_rows, **kw)
+            return call
+
+        ms = time_ms(walk(scatter_add_rows, skip_zero_rows=skip), inner=20, head_start_ms=4.0)
+        plain_ms = time_ms(walk(scatter_add_rows_plain, skip_zero_rows=skip), inner=4, head_start_ms=4.0)
+        # the library call of the same function (ids >= 0; dropped rows go to a spare row)
+        lib_sets = [(torch.where(i >= 0, i, num_rows), v) for i, v in sets]
+
+        def library():
+            turn[0] += 1
+            i, v = lib_sets[turn[0] % 2]
+            return torch.zeros((num_rows + 1, v.shape[1]), device=dev).index_add_(0, i, v)
+
+        library_ms = time_ms(library, inner=4, head_start_ms=4.0)
+        n, w = vals.shape
+        nbytes = n * idx.element_size() + n * w * 4 + num_rows * w * 4
+        bound_ms, bound_by = bound(n * w, nbytes)  # one addition per value
+        kept = (idx >= 0) & ((vals != 0).any(-1) if skip else True)
+        row = {"phase": "kernel", "name": "scatter_add_rows", "case": case, "rows": n, "width": w, "num_rows": num_rows,
+               "skip_zero_rows": skip, "kept_share": float(kept.float().mean()), "max_abs_err": float(err.max()),
+               "largest_sum": float(want.abs().max()), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+               "ns_per_row": ms * 1e6 / n, "roofline_share": bound_ms / ms}
+        emit(row)
+        cases[case] = row
+        del sets, lib_sets, got, want, got32
+        torch.cuda.empty_cache()
+    return cases
+
+
+class NGPSphereScene(OrbitCameras):
+    """In-memory training data in ``HashNerfDataset``'s batch format
+    (``rays_o``, ``rays_d`` in grid coordinates, ``target``, ``alpha``):
+    ``N_rand`` random pixels per step over all 40 orbit cameras, coloured by
+    :class:`SphereScene`'s analytic sphere. Only the chosen pixels' rays are
+    made, so the host's part of a step stays small."""
+
+    def __init__(self, n_rand, seed=SEED):
+        from xrnerf_torch.datasets.rays import spherical_render_poses
+
+        super().__init__()
+        self.N_rand, self.seed = n_rand, seed
+        self.poses = spherical_render_poses(40, phi=-30.0, radius=4.0).astype(np.float32)
+
+    def train_batch(self, step, host_id=0, num_hosts=1):
+        rng = np.random.RandomState(self.seed + step)
+        n = self.N_rand
+        cam = rng.randint(len(self.poses), size=n)
+        pix = rng.randint(self.H * self.W, size=n)
+        col, row = (pix % self.W).astype(np.float32), (pix // self.W).astype(np.float32)
+        K = self.K
+        dirs = np.stack([(col - K[0, 2]) / K[0, 0], -(row - K[1, 2]) / K[1, 1], -np.ones_like(col)], axis=-1)
+
+        def world(poses):  # xrnerf_torch.datasets.rays.get_rays_np for the chosen pixels
+            return (poses[cam, :3, 3].astype(np.float32),
+                    np.einsum("nc,nrc->nr", dirs, poses[cam, :3, :3]).astype(np.float32))
+
+        colour, hit = SphereScene.trace(*world(self.poses))
+        o, d = world(self.poses_ngp)
+        return {"rays_o": o, "rays_d": d, "target": colour, "alpha": hit[:, None].astype(np.float32)}
+
+
+NGP_KERNELS = ("fused_mlp2_fwd", "fused_mlp2_bwd", "fused_mlp3_fwd", "fused_mlp3_bwd", "scatter_add_rows")
+
+
+def ngp_counters():
+    from xrnerf_torch.ops import fused_mlp as fm
+    from xrnerf_torch.ops.scatter_rows import scatter_add_rows
+
+    return {"fused_mlp2_fwd": fm.fused_mlp2, "fused_mlp2_bwd": fm.fused_mlp2_bwd, "fused_mlp3_fwd": fm.fused_mlp3,
+            "fused_mlp3_bwd": fm.fused_mlp3_bwd, "scatter_add_rows": scatter_add_rows}
+
+
+def check_ngp_run(what, tr, rec, launches, steps, refreshes, scatters_per_step):
+    """What every NGP training run must show: exact launch counts, finite
+    logs, and the EMA copy's grid equal to the network's."""
+    want = {"fused_mlp2_fwd": steps + refreshes, "fused_mlp2_bwd": steps, "fused_mlp3_fwd": steps,
+            "fused_mlp3_bwd": steps, "scatter_add_rows": scatters_per_step * steps}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    for w in rec.windows:
+        if not all(math.isfinite(v) for v in w.values()):
+            raise AssertionError(f"{what}: a logged value is not finite: {w}")
+    if tr.ema_network is not None and not (
+        torch.equal(tr.ema_network.grid_density, tr.network.grid_density)
+        and torch.equal(tr.ema_network.grid_bitfield, tr.network.grid_bitfield)
+    ):
+        raise AssertionError(f"{what}: the EMA network's grid differs from the network's")
+
+
+def ngp_train_phases(work_dir):
+    """Instant-NGP training at full width through ``Trainer.run``; returns
+    the launches of each kernel on that path."""
+    from xrnerf_torch import build_network, load_config
+    from xrnerf_torch.core.trainer import Trainer
+    from xrnerf_torch.utils import checkpoint as ckpt
+
+    cfg = load_config(os.path.join(ROOT, "configs", "instant_ngp", "ngp_blender.py"), dataname="lego")
+    model_cfg = dict(cfg["model"], fused=True)
+    counters = ngp_counters()
+    ds = NGPSphereScene(N_RAND)
+
+    def trainer(cfg_model, max_iters, log_interval, hooks, **kw):
+        return Trainer(build_network(cfg_model, device="cuda"), ds, optimizer=cfg["optimizer"], work_dir=work_dir,
+                       max_iters=max_iters, log_interval=log_interval, ckpt_interval=NGP_TRAIN_STEPS, seed=SEED,
+                       ema_decay=cfg["ema_decay"], eval_chunk=int(cfg["eval_chunk"]), hooks=hooks, device="cuda", **kw)
+
+    def run(tr):
+        for f in counters.values():
+            f.launches = 0  # the main path starts here
+        torch.cuda.synchronize()
+        reached = tr.run()
+        torch.cuda.synchronize()
+        return reached, {k: f.launches for k, f in counters.items()}  # and ends here
+
+    # 13. 64 steps at N_rand 4096: 262,144 field rows per step, equal to the budget
+    torch.cuda.reset_peak_memory_stats()
+    rec = WindowLog()
+    tr = trainer(model_cfg, NGP_TRAIN_STEPS, NGP_TRAIN_LOG, [rec])
+    untrained = float((tr.network.grid_density < 0).float().mean())
+    reached, launches = run(tr)
+    if reached != NGP_TRAIN_STEPS:
+        raise AssertionError(f"NGP training stopped at step {reached}")
+    levels = model_cfg["n_levels"]
+    check_ngp_run("ngp_train", tr, rec, launches, NGP_TRAIN_STEPS, NGP_TRAIN_STEPS // NGP_AUX_INTERVAL, levels)
+    losses = [w["loss"] for w in rec.windows]
+    if len(losses) != NGP_TRAIN_STEPS // NGP_TRAIN_LOG or not losses[-1] < losses[0]:
+        raise AssertionError(f"NGP loss did not fall: windows {losses}")
+    path = os.path.join(work_dir, f"ckpt_{NGP_TRAIN_STEPS}.pt")
+    if ckpt.latest_path(work_dir) != path:
+        raise AssertionError(f"no checkpoint at step {NGP_TRAIN_STEPS}: {ckpt.latest_path(work_dir)}")
+    ms_step = float(np.median([w["ms_per_step"] for w in rec.windows[1:]]))
+    n_rows = N_RAND * model_cfg["n_keep"]
+    line = {"phase": "ngp_train", "config": "configs/instant_ngp/ngp_blender.py", "fused": True, "N_rand": N_RAND,
+            "field_rows_per_step": n_rows, "steps": NGP_TRAIN_STEPS, "refreshes": NGP_TRAIN_STEPS // NGP_AUX_INTERVAL,
+            "window_losses": losses, "window_psnr": [w["psnr"] for w in rec.windows],
+            "window_ms_per_step": [w["ms_per_step"] for w in rec.windows], "ms_per_step": ms_step,
+            "rays_per_s": N_RAND / (ms_step * 1e-3), "live_frac": [w["live_frac"] for w in rec.windows],
+            "occupied_share": float(tr.network.grid_bitfield.float().mean()), "untrained_share": untrained,
+            "launches": launches, "launches_per_step": {k: v / NGP_TRAIN_STEPS for k, v in launches.items()},
+            "ema_grid_equal": True, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    resumed = trainer(model_cfg, NGP_TRAIN_STEPS + 2, NGP_TRAIN_LOG, [], resume_from=path)
+    if resumed.start_step != NGP_TRAIN_STEPS or resumed.run() != NGP_TRAIN_STEPS + 2:
+        raise AssertionError("NGP resume did not continue from the checkpoint to step 66")
+    if not torch.equal(resumed.ema_network.grid_bitfield, resumed.network.grid_bitfield):
+        raise AssertionError("resumed run: the EMA network's grid differs from the network's")
+    line["resumed_to"] = NGP_TRAIN_STEPS + 2
+    emit(line)
+    del resumed
+
+    # 8 more steps from the checkpoint at N_rand 16,384: 1,048,576 marched samples against a
+    # budget of 262,144, so the compaction and its backward run
+    ds.N_rand = NGP_COMPACT_RAND
+    torch.cuda.reset_peak_memory_stats()
+    crec = WindowLog()
+    ctr = trainer(model_cfg, NGP_TRAIN_STEPS + NGP_COMPACT_STEPS, NGP_COMPACT_STEPS // 2, [crec], resume_from=path)
+    ctr.ckpt_interval = 0  # no checkpoint of this run is read
+    reached, claunches = run(ctr)
+    if reached != NGP_TRAIN_STEPS + NGP_COMPACT_STEPS:
+        raise AssertionError(f"compacted NGP training stopped at step {reached}")
+    check_ngp_run("ngp_train_compacted", ctr, crec, claunches, NGP_COMPACT_STEPS, 1, levels)
+    if not crec.windows[-1]["loss"] < losses[0]:
+        raise AssertionError(f"compacted run: loss {crec.windows[-1]['loss']} not below the first window's {losses[0]}")
+    cms = crec.windows[-1]["ms_per_step"]
+    emit({"phase": "ngp_train_compacted", "N_rand": NGP_COMPACT_RAND, "marched_samples": NGP_COMPACT_RAND * model_cfg["n_keep"],
+          "sample_budget": model_cfg["sample_budget"], "steps": NGP_COMPACT_STEPS, "from_step": NGP_TRAIN_STEPS,
+          "window_losses": [w["loss"] for w in crec.windows], "live_frac": [w["live_frac"] for w in crec.windows],
+          "window_ms_per_step": [w["ms_per_step"] for w in crec.windows], "ms_per_step": cms,
+          "rays_per_s": NGP_COMPACT_RAND / (cms * 1e-3), "launches": claunches, "ema_grid_equal": True,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    ds.N_rand = N_RAND
+    del ctr
+    torch.cuda.empty_cache()
+
+    # 14. gradients, card against CPU: the trained weights and grid, deterministic march
+    sd = {k: v.detach().cpu() for k, v in tr.network.state_dict().items()}
+    batch = NGPSphereScene(256, seed=SEED + 1000).train_batch(0)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        net = build_network(model_cfg, device=device)
+        net.load_state_dict(sd)
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        loss, _ = net.loss(net(b, generator=None, train=True), b)
+        loss.backward()
+        grads[device] = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+        grads[device + "_loss"] = loss.item()
+        del net
+    per_leaf = check_leaves("ngp_train_grads", grads["cuda"], grads["cpu"], NET_COS)
+    emit({"phase": "ngp_train_grads", "rays": 256, "loss_card": grads["cuda_loss"], "loss_cpu": grads["cpu_loss"],
+          "min_cos": min(r["cos"] for r in per_leaf.values()),
+          "ratio_range": [min(r["ratio"] for r in per_leaf.values()), max(r["ratio"] for r in per_leaf.values())],
+          "leaves": {k: [round(r["cos"], 6), round(r["ratio"], 5)] for k, r in per_leaf.items()}})
+    del grads
+    torch.cuda.empty_cache()
+
+    # 15. one step by kernel group, after the main path's counts were read
+    batch = tr._put_batch(ds.train_batch(10_000))
+    groups = {"tiny_mlp_fwd": ["tiny_mlp_fwd_kernel"], "tiny_mlp_bwd": ["tiny_mlp_bwd_kernel", "reduce_partials_kernel"],
+              "scatter": ["scatter_rows_"], "gather": ["scatter_gather", "indexSelect", "vectorized_gather"],
+              "sort": ["sort", "Sort", "radix", "Radix"], "index_add": ["indexAdd", "index_add", "indexFuncLarge", "indexFuncSmall"],
+              "elementwise_long": lambda k: "elementwise" in k and any(t in k for t in ("<long", "long,", "long>")),
+              "adam": ["multi_tensor_apply"]}
+    prof = profile_device(lambda: tr.train_step(batch, 10_000), ms_step, "ngp_train_profile", groups, top=12)
+    prof["adam_step_ms"] = time_ms(tr.optimizer.step, reps=5)
+    prof["ema_update_ms"] = time_ms(tr._update_ema, reps=5)
+    prof["table_entries"] = tr.network.field.encoding.table.numel()
+    n_syncs, inside = count_host_syncs(lambda: tr.train_step(batch, 10_001))
+    prof["cudaStreamSynchronize_per_step"] = n_syncs
+    prof["syncs_inside"] = inside
+    emit(prof)
+    if n_syncs != 0:
+        raise AssertionError(f"{n_syncs} host syncs in one NGP training step: {inside}")
+    del tr, batch
+    torch.cuda.empty_cache()
+
+    # 16. the brick layout, one lattice: the other call site of the scatter
+    brick_cfg = dict(model_cfg, hash_layout="brick", n_lattices=1)
+    brec = WindowLog()
+    btr = trainer(brick_cfg, NGP_BRICK_STEPS, NGP_BRICK_STEPS // 2, [brec])
+    btr.ckpt_interval = 0  # nor of this one
+    reached, blaunches = run(btr)
+    if reached != NGP_BRICK_STEPS:
+        raise AssertionError(f"brick training stopped at step {reached}")
+    check_ngp_run("ngp_brick_train", btr, brec, blaunches, NGP_BRICK_STEPS, 1, levels * brick_cfg["n_lattices"])
+    blosses = [w["loss"] for w in brec.windows]
+    if not blosses[-1] < blosses[0]:
+        raise AssertionError(f"brick loss did not fall: windows {blosses}")
+    emit({"phase": "ngp_brick_train", "hash_layout": "brick", "n_lattices": 1, "N_rand": N_RAND, "steps": NGP_BRICK_STEPS,
+          "table_shape": list(btr.network.field.encoding.table.shape), "window_losses": blosses,
+          "window_ms_per_step": [w["ms_per_step"] for w in brec.windows],
+          "scatter_launches_per_step": blaunches["scatter_add_rows"] / NGP_BRICK_STEPS,
+          "scatter_shape": [n_rows, 8 * model_cfg["n_features"], btr.network.field.encoding.rows], "launches": blaunches})
+    del btr
+    torch.cuda.empty_cache()
+    return {k: launches[k] + claunches[k] + blaunches[k] for k in launches}
 
 
 def main() -> int:
@@ -722,14 +1156,17 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    names = ["fused_nerf_mlp_fwd", "fused_nerf_mlp_bwd", "fused_mlp_fwd"]
+    names = ["fused_nerf_mlp_fwd", "fused_nerf_mlp_bwd", "fused_mlp_fwd", "fused_mlp_bwd", "scatter_rows"]
     build.load_libraries(names)
     ptxas = {}
     for name in names:
         log = build.lib_path(name).with_suffix(".log")
         ptxas[name] = [ln.strip() for ln in (log.read_text() if log.exists() else "").splitlines()
                        if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit({"phase": "build", "kernels": names, "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    from xrnerf_torch.ops import scatter_rows as scatter_ops
+
+    emit({"phase": "build", "kernels": names, "seconds": time.perf_counter() - t0, "ptxas": ptxas,
+          "scatter_vector_reductions": bool(scatter_ops._kernel_lib().xr_scatter_add_rows_vectorised())})
 
     # 3. kernel against its plain version
     rng = np.random.RandomState(SEED)
@@ -861,7 +1298,19 @@ def main() -> int:
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
-    # 11. kernels
+    # 11, 12. the backward kernels of the tiny MLPs and the scatter against their plain versions
+    tiny_bwd_rows = tiny_mlp_bwd_phase(dev, gen)
+    ngp_model = load_config(os.path.join(ROOT, "configs", "instant_ngp", "ngp_blender.py"), dataname="lego")["model"]
+    scatter_rows = scatter_phase(dev, gen, ngp_model)
+
+    # 13-16. Instant-NGP training at full width
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_ngp_train_")
+    try:
+        ngp_train_launches = ngp_train_phases(work_dir)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+    # 17. kernels
     k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
     keys = ("rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
@@ -874,11 +1323,19 @@ def main() -> int:
          "launches": train_launches["fused_nerf_mlp_bwd"],
          "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
          "min_cos": min(r["min_cos"] for r in bwd_rows.values()), **{k: b1[k] for k in keys}},
-        *({"name": name, "route": "cuda", "source": "xrnerf_torch/csrc/fused_mlp_fwd.cu",
-           "replaces": f"xrnerf_tpu/ops/pallas/fused_mlp.py:{line}", "launches": ngp_launches[name],
-           "max_abs_err": max(r["max_abs_err"] for r in tiny_rows[name].values()),
-           **{k: tiny_rows[name][262_144][k] for k in keys}}
-          for name, line in (("fused_mlp2_fwd", 64), ("fused_mlp3_fwd", 184))),
+        *({"name": name, "route": "cuda", "source": f"xrnerf_torch/csrc/fused_mlp_{name[-3:]}.cu",
+           "replaces": f"xrnerf_tpu/ops/pallas/fused_mlp.py:{line}",
+           "launches": ngp_launches.get(name, 0) + ngp_train_launches[name],
+           "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
+           **{k: rows[name][262_144][k] for k in keys}}
+          for name, line, rows in (("fused_mlp2_fwd", 64, tiny_rows), ("fused_mlp2_bwd", 77, tiny_bwd_rows),
+                                   ("fused_mlp3_fwd", 184, tiny_rows), ("fused_mlp3_bwd", 202, tiny_bwd_rows))),
+        {"name": "scatter_add_rows", "route": "cuda", "source": "xrnerf_torch/csrc/scatter_rows.cu",
+         "replaces": "xrnerf_tpu/ops/pallas/scatter_rows.py:62", "launches": ngp_train_launches["scatter_add_rows"],
+         "max_abs_err": max(r["max_abs_err"] for r in scatter_rows.values()),
+         **{k: scatter_rows["vertex_hashed"][k] for k in keys},
+         "other_shapes": {c: {k: r[k] for k in ("rows", "width", "num_rows", "ms", "plain_ms", "bound_ms", "library_ms")}
+                          for c, r in scatter_rows.items() if c != "vertex_hashed"}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

@@ -242,8 +242,12 @@ def test_loss_matches_jax():
 
 
 def test_brick_layout_and_fused_defaults():
-    with pytest.raises(NotImplementedError, match="BrickHashEncoding"):
-        HashNerfNetwork(**NET_KW, hash_layout="brick")
+    brick = HashNerfNetwork(**NET_KW, hash_layout="brick", n_lattices=2, brick_blend="smooth")
+    assert brick.field.encoding.table.shape == (4, 2, (1 << 7) // 2, 16) and brick.field.encoding.smooth
+    dens, bits = _grid_np()
+    brick.load_state_dict({k: torch.from_numpy(v) for k, v in grid_state_from_jax((dens, bits)).items()}, strict=False)
+    out = brick(_tb(_batch()))
+    assert out["rgb"].shape == (N_RAYS, 3) and bool(torch.isfinite(out["rgb"]).all())
     net = build_network(dict(type="HashNerfNetwork", **NET_KW), device="cpu")
     assert net.fused is False and net.aux_interval == 16 and hasattr(net.field, "density_net")
     net.reset_parameters(torch.Generator().manual_seed(0))

@@ -18,7 +18,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "xrnerf_tpu"}
 
 
 NGP_MODULES = (
-    "ops.fused_mlp", "models.embedders.sh", "models.embedders.hashenc", "models.fields.ngp_mlp",
+    "ops.fused_mlp", "ops.scatter_rows", "models.embedders.sh", "models.embedders.hashenc", "models.fields.ngp_mlp",
     "models.samplers.occupancy", "models.samplers.ngp_march", "models.networks.hashnerf", "datasets.hashnerf",
 )
 

@@ -13,14 +13,18 @@ Each step draws its randomness from a generator on the network's device
 seeded from ``(seed, step)``, so a resumed run takes the steps a straight
 run would.
 
-The serving half of the JAX trainer's aux protocol is here: a network with
-``init_aux`` (Instant-NGP's occupancy grid) has it called at construction
-with the dataset, before any checkpoint or ``load_from`` file is read. The
-network holds that state as buffers, so its ``state_dict`` carries it into
-checkpoints and weight files, and ``render_image`` marches through what was
-restored. Calling ``update_aux`` every ``aux_interval`` steps inside
-``run``, and the mesh, ``trainable_filter`` and ``param_loss`` protocols
-(KiloNeRF, AniNeRF, multi-GPU), come with those slices.
+The JAX trainer's aux protocol is here: a network with ``init_aux``
+(Instant-NGP's occupancy grid) has it called at construction with the
+dataset, before any checkpoint or ``load_from`` file is read, and ``run``
+calls its ``update_aux`` before every step whose number is a multiple of
+``network.aux_interval`` (step 0 included) with a generator of its own
+stream, seeded from ``(seed, 2**31 + step)``. The network holds that state
+as buffers, so its ``state_dict`` carries it into checkpoints and weight
+files. Eval renders with the EMA weights and the live state, as the JAX
+trainer evaluates ``(eval_params, aux)``: the EMA network's buffers are
+copied from the network's after every refresh and after a checkpoint or
+weight file is read. The mesh, ``trainable_filter`` and ``param_loss``
+protocols (KiloNeRF, AniNeRF, multi-GPU) come with those slices.
 """
 
 from __future__ import annotations
@@ -161,6 +165,7 @@ class Trainer:
             self.ema_network = copy.deepcopy(self.network).requires_grad_(False)
             if resume_from and state.get("ema") is not None:
                 self.ema_network.load_state_dict(state["ema"])
+                self._sync_ema_buffers()
 
     # ------------------------------------------------------------------
     def request_stop(self):
@@ -193,6 +198,21 @@ class Trainer:
         with torch.no_grad():
             for e, p in zip(self.ema_network.parameters(), self.network.parameters()):
                 e.mul_(d).add_(p, alpha=1 - d)
+
+    def _sync_ema_buffers(self) -> None:
+        """The EMA copy averages parameters only; its buffers (the occupancy
+        grid) follow the network's."""
+        with torch.no_grad():
+            for e, b in zip(self.ema_network.buffers(), self.network.buffers()):
+                e.copy_(b)
+
+    def update_aux(self, step: int) -> None:
+        """Refresh the network's aux state (the occupancy grid) for ``step``
+        from its own random stream, on the live network, and hand the new
+        state to the EMA copy."""
+        self.network.update_aux(step_generator(self.device, self.seed, 2**31 + step))
+        if self.ema_network is not None:
+            self._sync_ema_buffers()
 
     def save_checkpoint(self, step: int) -> str:
         return ckpt.save(self.work_dir, step, {
@@ -231,8 +251,11 @@ class Trainer:
         )
         step = self.start_step
         self.network.train()
+        aux_interval = getattr(self.network, "aux_interval", 0) if hasattr(self.network, "update_aux") else 0
         try:
             while step < self.max_iters and not self._stop:
+                if aux_interval and step % aux_interval == 0:
+                    self.update_aux(step)
                 logs = self.train_step(prefetcher.get(step), step)
                 step += 1
                 self.step = step

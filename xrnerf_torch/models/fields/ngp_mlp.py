@@ -3,8 +3,10 @@
 
 HashGrid (16 levels x 2 features, table 2^19) -> density MLP (64 wide, one
 hidden layer, 1 + ``geo_feat_dim`` outputs) and SH(degree 4) + geo features
--> colour MLP (64 wide, two hidden layers, 3 outputs). Two parameter
-layouts, as in the JAX package:
+-> colour MLP (64 wide, two hidden layers, 3 outputs). ``hash_layout``
+selects the encoding: ``'vertex'`` (tcnn's interpolation) or ``'brick'``
+(one row per point, level and lattice; ``n_lattices``, ``brick_blend``). Two
+parameter layouts, as in the JAX package:
 
 - ``fused=False``: ``density_net`` (Linear-ReLU-Linear) and ``color_net``
   (three Linears) as ``nn.Sequential``s whose indices match flax's
@@ -12,8 +14,8 @@ layouts, as in the JAX package:
   ``dtype`` (bf16) as flax ``Dense(dtype=bf16)`` does.
 - ``fused=True`` (the JAX ``use_pallas=True`` layout): ``d_w1 .. c_b3``,
   weights stored [in, out] as flax stores them, through
-  ``ops/fused_mlp.py`` (the CUDA kernels on the card, their plain versions
-  on the CPU). The JAX rounding points are kept: the encoding, the geo
+  ``ops/fused_mlp.py`` (the CUDA kernels on the card, forward and backward,
+  their plain versions on the CPU). The JAX rounding points are kept: the encoding, the geo
   features and the SH values are rounded to ``dtype`` and enter the fused
   MLPs as f32; raw sigma and raw rgb leave as f32.
 """
@@ -27,7 +29,7 @@ import torch
 import torch.nn as nn
 
 from ...ops.fused_mlp import fused_mlp2, fused_mlp3
-from ..embedders.hashenc import HashEncoding
+from ..embedders.hashenc import BrickHashEncoding, HashEncoding
 from ..embedders.sh import sh_encode
 from .nerf_mlp import _TRUNC_STD, lecun_normal_
 
@@ -45,20 +47,19 @@ class NGPField(nn.Module):
         sh_degree: int = 4,
         fused: bool = False,
         hash_layout: str = "vertex",
+        n_lattices: int = 1,  # brick only: 2 = staggered dual lattice
+        brick_blend: str = "mean",  # brick only: 'smooth' = face-bump cross-fade
         dtype: torch.dtype = torch.bfloat16,
     ):
         super().__init__()
-        if hash_layout != "vertex":
-            raise NotImplementedError(
-                f"hash_layout={hash_layout!r}: BrickHashEncoding is not ported yet; it comes with "
-                "the Instant-NGP training slice (slice 4). Use hash_layout='vertex'."
-            )
         self.geo_feat_dim, self.sh_degree = geo_feat_dim, sh_degree
         self.fused, self.dtype = fused, dtype
-        self.encoding = HashEncoding(
-            n_levels=n_levels, n_features=n_features, log2_table_size=log2_table_size,
-            base_res=base_res, max_res=max_res, dtype=dtype,
-        )
+        enc_kw = dict(n_levels=n_levels, n_features=n_features, log2_table_size=log2_table_size,
+                      base_res=base_res, max_res=max_res, dtype=dtype)
+        if hash_layout == "brick":
+            self.encoding = BrickHashEncoding(n_lattices=n_lattices, blend=brick_blend, **enc_kw)
+        else:  # as the JAX field: anything else is the vertex layout
+            self.encoding = HashEncoding(**enc_kw)
         enc_dim, sh_dim = n_levels * n_features, sh_degree**2
         h, g = hidden_dim, geo_feat_dim
         if fused:

@@ -15,8 +15,11 @@ Here the network holds it as two buffers (``grid_density``,
 selects ``NGPField``'s fused parameter layout and kernels, which the JAX
 package reaches only by building ``NGPField(use_pallas=True)`` directly.
 Eval (``train=False``) is deterministic and runs under
-``torch.inference_mode()``. ``param_spec`` (multi-GPU sharding of the table)
-is not ported yet.
+``torch.inference_mode()``; ``train=True`` marches under the step's generator
+and is differentiable down to the hash table, on the card through the
+backward kernels of the two tiny MLPs and the row scatter-add, with no
+device-to-host copy in the step. ``param_spec`` (multi-GPU sharding of the
+table) is not ported yet.
 """
 
 from __future__ import annotations
@@ -72,7 +75,9 @@ class HashNerfNetwork(nn.Module):
         sample_budget: int = 0,
         loss_scale: float = 5.0,
         huber_delta: float = 0.1,
-        hash_layout: str = "vertex",
+        hash_layout: str = "vertex",  # 'vertex' (tcnn-exact) | 'brick' (one row per point and level)
+        n_lattices: int = 1,  # brick only: 2 = staggered dual lattice
+        brick_blend: str = "mean",  # brick only: 'smooth' = face-bump cross-fade
         fused: bool = False,
         dtype: torch.dtype = torch.bfloat16,
     ):
@@ -87,7 +92,7 @@ class HashNerfNetwork(nn.Module):
         self.field = NGPField(
             n_levels=n_levels, n_features=n_features, log2_table_size=log2_table_size,
             base_res=base_res, max_res=max_res, hidden_dim=hidden_dim, geo_feat_dim=geo_feat_dim,
-            fused=fused, hash_layout=hash_layout, dtype=dtype,
+            fused=fused, hash_layout=hash_layout, n_lattices=n_lattices, brick_blend=brick_blend, dtype=dtype,
         )
         grid = create_grid(n_cascades, grid_res)
         self.register_buffer("grid_density", grid.density)

@@ -10,10 +10,15 @@ numpy only. A flax ``nn.Dense`` leaf is ``{"kernel": [din, dout], "bias":
   ``layers_0``, ``layers_2``, ...; ``torch.nn.Sequential`` names them ``0``,
   ``2``, ..., so ``field/density_net/layers_0/kernel`` becomes
   ``field.density_net.0.weight``;
-- Instant-NGP, fused layout: ``field/d_w1 .. c_b3`` and
-  ``field/encoding/table`` [L, T, F] are bare arrays and are copied as they
-  are. The port stores the fused weights [in, out], the orientation flax
-  stores and the kernels read.
+- Instant-NGP, fused layout: ``field/d_w1 .. c_b3`` are bare arrays and are
+  copied as they are. The port stores the fused weights [in, out], the
+  orientation flax stores and the kernels read.
+- the hash table ``field/encoding/table`` is a bare array in both hash
+  layouts and is copied as it is: vertex [L, T, F], brick
+  [L, n_lattices, tb, 8F].
+
+A gradient tree has the parameters' structure, so the same functions carry
+gradients across for leaf-by-leaf comparison.
 
 The occupancy grid (``OccupancyGrid(density [C, R^3] f32, bitfield [C, R^3]
 bool)``) travels as the network's ``grid_density`` / ``grid_bitfield``
