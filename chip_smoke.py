@@ -9,7 +9,8 @@ Phases, each printed as one JSON line:
 2. build   - the CUDA kernels ``xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu``,
              ``fused_nerf_mlp_bwd.cu``, ``fused_mlp_fwd.cu``,
              ``fused_mlp_bwd.cu`` and ``scatter_rows.cu``, one nvcc each,
-             started together; ptxas registers and spills.
+             started together; ptxas registers and spills; for the two
+             vanilla-NeRF kernels each kernel's dynamic shared memory.
 3. kernel  - ``fused_nerf_mlp_fwd`` against its plain version on the card
              at width 256 with seeded weights, for N = 1000 (ragged tile),
              1,048,576 (one coarse chunk) and 3,145,728 (one fine chunk),
@@ -31,7 +32,9 @@ Phases, each printed as one JSON line:
              weight and bias block) cosine > 0.99 and norm ratio 0.93-1.07,
              the smallest cosine and largest relative error printed; two
              launches give the same bits; kernel, plain-version and bf16
-             ``F.linear``-chain autograd backward times (median of 7).
+             ``F.linear``-chain autograd backward times (median of 7); one
+             more launch under torch.profiler gives the device time of each
+             of its passes (``passes_ms``).
 6. train   - ``Trainer.run`` trains the same full-width network (fused,
              perturb, Adam lr 5e-4 with decay, ``N_rand`` 4096) for 40 steps
              on the lego camera over an analytic scene (a coloured sphere
@@ -135,6 +138,7 @@ RTOL, ATOL = 2e-2, 8e-3
 GRAD_COS, GRAD_RATIO = 0.99, (0.93, 1.07)  # tests/test_fused_nerf_mlp.py:73-79
 NET_COS = 0.97  # tests/test_fused_nerf_mlp.py:101-131
 SEED = 0
+FWD_ROWS = (1000, 1_048_576, 3_145_728)  # ragged; one coarse and one fine eval chunk
 BWD_ROWS = (1000, 262_144, 786_432)  # ragged; one coarse and one fine train launch
 TRAIN_STEPS, TRAIN_LOG, N_RAND = 40, 10, 4096  # N_RAND: bench.py's flagship batch
 TINY_ROWS = (1000, 65_536, 262_144)  # ragged; one grid refresh; one render chunk
@@ -251,13 +255,9 @@ def library_params(packed):
     return {k: t.contiguous() for k, t in p.items()}
 
 
-def profile_device(run, wall_ms, phase, groups=None, top=8):
-    """``run()`` under torch.profiler (device activity only): device time by
-    kernel (the ``top`` largest), the fused kernels' part, and the device's idle share
-    against ``wall_ms``, the unprofiled time of the same work (the profiler
-    slows the host, so its own wall time overstates idleness). ``groups``
-    ({label: substrings of kernel names, or a predicate on the name}) adds
-    each group's device time."""
+def device_times(run):
+    """``run()`` under torch.profiler (device activity only): [(kernel name,
+    device ms, launches)], largest first, and the profiled wall time in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -272,6 +272,17 @@ def profile_device(run, wall_ms, phase, groups=None, top=8):
 
     kernels = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
     by_kernel = sorted(((e.key, dev_ms(e), e.count) for e in kernels if dev_ms(e) > 0), key=lambda r: -r[1])
+    return by_kernel, prof_wall_ms
+
+
+def profile_device(run, wall_ms, phase, groups=None, top=8):
+    """``run()`` under torch.profiler: device time by kernel (the ``top``
+    largest), the fused kernels' part, and the device's idle share
+    against ``wall_ms``, the unprofiled time of the same work (the profiler
+    slows the host, so its own wall time overstates idleness). ``groups``
+    ({label: substrings of kernel names, or a predicate on the name}) adds
+    each group's device time."""
+    by_kernel, prof_wall_ms = device_times(run)
     busy_ms = sum(ms for _, ms, _ in by_kernel)
     fwd_ms = sum(ms for k, ms, _ in by_kernel if "fused_nerf_mlp_fwd" in k)
     bwd_ms = sum(ms for k, ms, _ in by_kernel if "fused_nerf_mlp_bwd" in k)
@@ -287,6 +298,18 @@ def profile_device(run, wall_ms, phase, groups=None, top=8):
         line[f"{label}_ms"] = g_ms
         line[f"{label}_share_of_busy"] = g_ms / busy_ms if busy_ms else 0.0
     return line
+
+
+BWD_PASSES = ("fused_nerf_mlp_bwd_rows", "fused_nerf_mlp_bwd_wgrad", "fused_nerf_mlp_bwd_finish")
+
+
+def passes_ms(run) -> dict:
+    """Device time (ms) of each of the backward's passes in ``run()``, and of
+    everything else it starts (``other``: the wrapper's fills)."""
+    by_kernel, _ = device_times(run)
+    out = {name: sum(ms for k, ms, _ in by_kernel if name in k) for name in BWD_PASSES}
+    out["other"] = sum(ms for _, ms, _ in by_kernel) - sum(out.values())
+    return out
 
 
 def cosine(a, b):
@@ -339,12 +362,19 @@ class SphereScene:
         return cls.trace(o, d)[0]
 
     def train_batch(self, step, host_id=0, num_hosts=1):
-        from xrnerf_torch.datasets.rays import get_rays_np
-
+        """``N_rand`` random pixels of one random camera. Only their rays are
+        made (``get_rays_np``'s arithmetic for the chosen pixels), so the host's
+        part of a step stays small, as with a dataset that holds its rays.
+        Pixels are drawn with replacement (no permutation of the 640,000
+        pixels per step); a repeat among 4096 draws is rare and harmless."""
         rng = np.random.RandomState(self.seed + step)
-        rays_o, rays_d = get_rays_np(self.H, self.W, self.K, self.poses[rng.randint(len(self.poses))])
-        idx = rng.choice(self.H * self.W, self.N_rand, replace=False)
-        o, d = rays_o.reshape(-1, 3)[idx], rays_d.reshape(-1, 3)[idx]
+        pose = self.poses[rng.randint(len(self.poses))].astype(np.float32)
+        pix = rng.randint(self.H * self.W, size=self.N_rand)
+        col, row = (pix % self.W).astype(np.float32), (pix // self.W).astype(np.float32)
+        K = self.K
+        dirs = np.stack([(col - K[0, 2]) / K[0, 0], -(row - K[1, 2]) / K[1, 1], -np.ones_like(col)], axis=-1)
+        d = (dirs @ pose[:3, :3].T).astype(np.float32)
+        o = np.broadcast_to(pose[:3, 3], d.shape).astype(np.float32)
         n = self.N_rand
         return {"rays_o": o, "rays_d": d, "near": np.full((n, 1), self.near, np.float32),
                 "far": np.full((n, 1), self.far, np.float32), "target": self.colour(o, d)}
@@ -367,13 +397,48 @@ class WindowLog:
             self.windows.append(dict(tr.last_logs, step=step))
 
 
-def bwd_kernel_phase(dev, packed, gen):
+def fwd_kernel_phase(dev, packed, gen, rows=FWD_ROWS):
+    """The forward kernel against its plain version; returns its rows by N."""
+    from xrnerf_torch.ops.fused_nerf_mlp import fused_nerf_mlp_fwd, fused_nerf_mlp_ref
+
+    lib_p = library_params(packed)
+    kernel_rows = {}
+    for n in rows:
+        # posenc-like inputs: 3 raw coordinates in [-2, 2], then values in [-1, 1]
+        x = torch.rand((n, 63), generator=gen, device=dev) * 2 - 1
+        x[:, :3] *= 2
+        v = torch.rand((n, 27), generator=gen, device=dev) * 2 - 1
+        rgb_k, sig_k = fused_nerf_mlp_fwd(x, v, packed)
+        rgb_r, sig_r = fused_nerf_mlp_ref(x, v, packed)
+        torch.cuda.synchronize()
+        err = max(check_close(f"rgb N={n}", rgb_k, rgb_r), check_close(f"sigma N={n}", sig_k, sig_r))
+        ms = time_ms(lambda: fused_nerf_mlp_fwd(x, v, packed))
+        plain_ms = time_ms(lambda: fused_nerf_mlp_ref(x, v, packed), reps=5, warmup=1)
+        library_ms = time_ms(lambda: library_mlp(x, v, lib_p))
+        rgb_l, sig_l = library_mlp(x, v, lib_p)
+        lib_err = float(max((rgb_l - rgb_r).abs().max(), (sig_l - sig_r).abs().max()))
+        flop = n * MLP_FLOP_PER_ROW
+        nbytes = n * (63 + 27 + 4) * 4 + packed.weights.numel() * 2 + packed.biases.numel() * 4
+        bound_ms = max(flop / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S) * 1e3
+        row = {"phase": "kernel", "name": "fused_nerf_mlp_fwd", "rows": n, "max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_max_abs_err": lib_err, "bound_ms": bound_ms,
+               "bound_by": "operations" if flop / H100_BF16_FLOPS >= nbytes / H100_HBM_BYTES_S else "bytes",
+               "tflops": flop / (ms * 1e-3) / 1e12, "roofline_share": bound_ms / ms}
+        emit(row)
+        kernel_rows[n] = row
+        del x, v, rgb_k, sig_k, rgb_r, sig_r, rgb_l, sig_l
+        torch.cuda.empty_cache()
+    return kernel_rows
+
+
+def bwd_kernel_phase(dev, packed, gen, rows=BWD_ROWS):
     """The backward kernel against its plain version; returns its rows by N."""
     from xrnerf_torch.ops.fused_nerf_mlp import fused_nerf_mlp_bwd, fused_nerf_mlp_bwd_ref, unpack_params
 
     lib_p = {k: t.detach().clone().requires_grad_() for k, t in library_params(packed).items()}
-    rows = {}
-    for n in BWD_ROWS:
+    out = {}
+    for n in rows:
         x = torch.rand((n, 63), generator=gen, device=dev) * 2 - 1
         x[:, :3] *= 2
         v = torch.rand((n, 27), generator=gen, device=dev) * 2 - 1
@@ -392,6 +457,7 @@ def bwd_kernel_phase(dev, packed, gen):
             raise AssertionError(f"bwd N={n}: a second launch gave other bits")
         del want, again
         ms = time_ms(lambda: fused_nerf_mlp_bwd(x, v, g, packed))
+        by_pass = passes_ms(lambda: fused_nerf_mlp_bwd(x, v, g, packed))
         plain_ms = time_ms(lambda: fused_nerf_mlp_bwd_ref(x, v, g, packed))
         xg = x.detach().requires_grad_()
         vg = v.detach().requires_grad_()
@@ -408,17 +474,17 @@ def bwd_kernel_phase(dev, packed, gen):
         row = {"phase": "bwd_kernel", "name": "fused_nerf_mlp_bwd", "rows": n,
                "min_cos": min(r["cos"] for r in per_leaf.values()),
                "max_abs_err": max(r["max_abs_err"] for r in per_leaf.values()),
-               "deterministic": True, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms,
+               "deterministic": True, "ms": ms, "passes_ms": by_pass, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": "operations" if flop / H100_BF16_FLOPS >= nbytes / H100_HBM_BYTES_S else "bytes",
                "tflops": flop / (ms * 1e-3) / 1e12, "roofline_share": bound_ms / ms,
                "leaves": {k: [round(r["cos"], 6), round(r["ratio"], 5), round(r["rel_err"], 5)]
                           for k, r in per_leaf.items()}}
         emit(row)
-        rows[n] = row
+        out[n] = row
         del x, v, g, got
         torch.cuda.empty_cache()
-    return rows
+    return out
 
 
 def train_phase(model_cfg, cfg, work_dir):
@@ -1137,7 +1203,7 @@ def main() -> int:
     from xrnerf_torch.core.renderer import render_image
     from xrnerf_torch.datasets.rays import get_rays_np, intrinsics_from_hwf, spherical_render_poses
     from xrnerf_torch.ops import build
-    from xrnerf_torch.ops.fused_nerf_mlp import fused_nerf_mlp_fwd, fused_nerf_mlp_ref, pack_params
+    from xrnerf_torch.ops.fused_nerf_mlp import fused_nerf_mlp_fwd, pack_params
     from xrnerf_torch.utils.metrics import psnr
     from xrnerf_torch.utils.weights import state_dict_from_jax
 
@@ -1163,9 +1229,14 @@ def main() -> int:
         log = build.lib_path(name).with_suffix(".log")
         ptxas[name] = [ln.strip() for ln in (log.read_text() if log.exists() else "").splitlines()
                        if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    from xrnerf_torch.ops import fused_nerf_mlp as nerf_ops
     from xrnerf_torch.ops import scatter_rows as scatter_ops
 
+    fwd_lib, bwd_lib = (nerf_ops._kernel_lib(name) for name in names[:2])
     emit({"phase": "build", "kernels": names, "seconds": time.perf_counter() - t0, "ptxas": ptxas,
+          "dynamic_smem_bytes": {"fused_nerf_mlp_fwd_kernel": fwd_lib.xr_fused_nerf_mlp_fwd_smem_bytes(),
+                                 "fused_nerf_mlp_bwd_rows": bwd_lib.xr_fused_nerf_mlp_bwd_rows_smem_bytes(),
+                                 "fused_nerf_mlp_bwd_wgrad": bwd_lib.xr_fused_nerf_mlp_bwd_wgrad_smem_bytes()},
           "scatter_vector_reductions": bool(scatter_ops._kernel_lib().xr_scatter_add_rows_vectorised())})
 
     # 3. kernel against its plain version
@@ -1173,36 +1244,8 @@ def main() -> int:
     mlp_sd = {k: torch.from_numpy(v).to(dev) for k, v in
               state_dict_from_jax(seeded_mlp_tree(rng)).items()}
     packed = pack_params(mlp_sd, 63, 27)
-    lib_p = library_params(packed)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    kernel_rows = {}
-    for n in (1000, 1_048_576, 3_145_728):
-        # posenc-like inputs: 3 raw coordinates in [-2, 2], then values in [-1, 1]
-        x = torch.rand((n, 63), generator=gen, device=dev) * 2 - 1
-        x[:, :3] *= 2
-        v = torch.rand((n, 27), generator=gen, device=dev) * 2 - 1
-        rgb_k, sig_k = fused_nerf_mlp_fwd(x, v, packed)
-        rgb_r, sig_r = fused_nerf_mlp_ref(x, v, packed)
-        torch.cuda.synchronize()
-        err = max(check_close(f"rgb N={n}", rgb_k, rgb_r), check_close(f"sigma N={n}", sig_k, sig_r))
-        ms = time_ms(lambda: fused_nerf_mlp_fwd(x, v, packed))
-        plain_ms = time_ms(lambda: fused_nerf_mlp_ref(x, v, packed), reps=5, warmup=1)
-        library_ms = time_ms(lambda: library_mlp(x, v, lib_p))
-        rgb_l, sig_l = library_mlp(x, v, lib_p)
-        lib_err = float(max((rgb_l - rgb_r).abs().max(), (sig_l - sig_r).abs().max()))
-        flop = n * MLP_FLOP_PER_ROW
-        nbytes = n * (63 + 27 + 4) * 4 + packed.weights.numel() * 2 + packed.biases.numel() * 4
-        bound_ms = max(flop / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S) * 1e3
-        row = {"phase": "kernel", "name": "fused_nerf_mlp_fwd", "rows": n, "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "library_max_abs_err": lib_err, "bound_ms": bound_ms,
-               "bound_by": "operations" if flop / H100_BF16_FLOPS >= nbytes / H100_HBM_BYTES_S else "bytes",
-               "tflops": flop / (ms * 1e-3) / 1e12, "roofline_share": bound_ms / ms}
-        emit(row)
-        kernel_rows[n] = row
-        del x, v, rgb_k, sig_k, rgb_r, sig_r, rgb_l, sig_l
-        torch.cuda.empty_cache()
-
+    kernel_rows = fwd_kernel_phase(dev, packed, gen)
     bwd_rows = bwd_kernel_phase(dev, packed, gen)
 
     # 4. the slice: full-width vanilla NeRF renders an 800x800 novel view

@@ -5,8 +5,11 @@
 - the fused op's plain version matches the JAX ``fused_nerf_mlp`` (Pallas
   in interpret mode on the CPU) at rtol 2e-2 / atol 8e-3, the tolerances
   of ``tests/test_fused_nerf_mlp.py``;
+- the kernels' weight image holds every pack element once, in the swizzled
+  block order the kernels read, and the backward's grid schedule covers
+  every row once;
 - on the card (only), the CUDA kernels, forward and backward, match their
-  plain versions.
+  plain versions, at row counts around every tile edge.
 
 JAX is imported inside the tests that compare with it, so the card tests
 run where JAX is not installed:
@@ -21,11 +24,18 @@ torch.set_num_threads(2)
 
 from xrnerf_torch.models.fields.nerf_mlp import NerfMLP  # noqa: E402
 from xrnerf_torch.ops.fused_nerf_mlp import (  # noqa: E402
+    KERNEL_SLAB,
+    KERNEL_TILE,
+    bwd_schedule,
     fused_nerf_mlp_bwd,
     fused_nerf_mlp_bwd_ref,
     fused_nerf_mlp_fwd,
     fused_nerf_mlp_ref,
     pack_params,
+    unpack_params,
+    weight_image,
+    weight_image_index,
+    with_image,
 )
 from xrnerf_torch.utils.weights import (  # noqa: E402
     jax_params_from_state_dict,
@@ -127,6 +137,92 @@ def test_fused_requires_reference_topology():
         NerfMLP(netdepth=4, fused=True)
 
 
+def _random_pack(din, dv, seed=0):
+    mlp = NerfMLP(netwidth=256, in_ch=din, in_ch_views=dv)
+    mlp.reset_parameters(torch.Generator().manual_seed(seed))
+    return pack_params(mlp.state_dict(), din, dv)
+
+
+@pytest.mark.parametrize("din,dv", [(63, 27), (64, 32)])
+def test_weight_image_round_trip(din, dv):
+    """Image -> pack is exact and every pack element appears exactly once;
+    the rest of the image is padding, read as zero."""
+    packed = _random_pack(din, dv)
+    total = packed.weights.numel()
+    idx = weight_image_index(packed.width, packed.px, packed.pv)
+    valid = idx < total
+    assert idx.max() == total and np.array_equal(np.sort(idx[valid]), np.arange(total))
+    # 601,088 bf16: the pack plus views_0's view columns padded from 32 to 64
+    assert idx.size == total + 128 * 32 and idx.size * 2 % 1024 == 0
+    image = weight_image(packed)
+    assert image.dtype == torch.bfloat16 and image.shape == (idx.size,)
+    assert float(image[torch.from_numpy(~valid)].abs().max()) == 0.0
+    back = torch.zeros_like(packed.weights)
+    back[torch.from_numpy(idx[valid])] = image[torch.from_numpy(valid)]
+    assert torch.equal(back, packed.weights)
+
+
+@pytest.mark.parametrize("name,row,col,offset", [
+    # w0 is the image's first 32 KB slab: one column block, four row blocks of 64 x 64
+    ("w0", 0, 0, 0), ("w0", 0, 8, 8), ("w0", 1, 0, 64 + 8), ("w0", 9, 62, 9 * 64 + (7 ^ 1) * 8 + 6),
+    ("w0", 64, 0, 4096), ("w0", 255, 63, 3 * 4096 + 63 * 64 + (7 ^ 7) * 8 + 7),
+    # w1 follows; its blocks are ordered column-block-major: (c, ob) at (4 c + ob) * 4096
+    ("w1", 0, 0, 16384), ("w1", 9, 70, 16384 + (4 * 1 + 0) * 4096 + 9 * 64 + (0 ^ 1) * 8 + 6),
+    ("w1", 200, 130, 16384 + (4 * 2 + 3) * 4096 + 8 * 64 + (0 ^ 0) * 8 + 2),
+    # the alpha head after w7: [8][64] chunks of 512 values
+    ("wa", 0, 0, 16384 * 2 + 65536 * 7), ("wa", 0, 64, 16384 * 2 + 65536 * 7 + 512),
+])
+def test_weight_image_positions(name, row, col, offset):
+    packed = _random_pack(64, 32, seed=1)
+    image = weight_image(packed)
+    assert image[offset] == unpack_params(packed)[name][row, col]
+
+
+@pytest.mark.parametrize("n,sms,want", [
+    (1, 132, (128, 1, 64, 2)),
+    (128, 132, (128, 1, 64, 2)),
+    (129, 132, (256, 2, 64, 4)),
+    (300, 132, (384, 3, 64, 6)),
+    (1000, 132, (1024, 8, 128, 8)),
+    (132 * 128 + 1, 132, (17_024, 132, 1_472, 12)),
+    (262_144, 132, (262_144, 132, 21_888, 12)),
+    (786_432, 132, (786_432, 132, 65_536, 12)),
+    (70_001, 114, (70_016, 114, 7_040, 10)),
+])
+def test_bwd_schedule_cases(n, sms, want):
+    assert bwd_schedule(n, sms) == want
+
+
+def test_with_image_builds_the_image_once():
+    """A pack keeps the image it was given; one without gets it built."""
+    packed = _random_pack(63, 27)
+    assert packed.image is None  # a CPU pack carries none until asked
+    first = with_image(packed)
+    assert torch.equal(first.image, weight_image(packed)) and first.weights is packed.weights
+    assert with_image(first) is first
+
+
+def test_bwd_schedule_covers_every_row_once():
+    hypothesis = pytest.importorskip("hypothesis")
+    st = hypothesis.strategies
+
+    @hypothesis.settings(max_examples=200, deadline=None)
+    @hypothesis.given(st.integers(1, 4_000_000), st.integers(1, 200))
+    def check(n, sms):
+        npad, grid, kchunk, splits = bwd_schedule(n, sms)
+        assert npad % KERNEL_TILE == 0 and n <= npad < n + KERNEL_TILE
+        assert 1 <= grid <= sms
+        tiles = npad // KERNEL_TILE
+        walked = sorted(t for cta in range(grid) for t in range(cta, tiles, grid))
+        assert walked == list(range(tiles))  # the row pass: every tile once
+        assert kchunk % KERNEL_SLAB == 0
+        chunks = [(s * kchunk, min((s + 1) * kchunk, npad)) for s in range(splits)]
+        assert chunks[0][0] == 0 and chunks[-1][1] == npad and all(a < b for a, b in chunks)
+        assert all(chunks[i][1] == chunks[i + 1][0] for i in range(splits - 1))
+
+    check()
+
+
 def _cuda_pack():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
@@ -144,7 +240,7 @@ def _cuda_pack():
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     packed = _cuda_pack()
-    for n in (1, 127, 1000, 70001):
+    for n in (1, 63, 64, 65, 127, 128, 129, 1000, 132 * KERNEL_TILE + 1, 70001):
         x, v = (torch.from_numpy(a).cuda() for a in _data(n, seed=n))
         before = fused_nerf_mlp_fwd.launches
         rgb, sigma = fused_nerf_mlp_fwd(x, v, packed)
@@ -163,13 +259,11 @@ def _cos(a, b):
 @pytest.mark.cuda
 def test_cuda_backward_kernel_matches_plain_version():
     """dx, dv and the weight and bias gradients per leaf: cosine > 0.99 and
-    norm ratio 0.93-1.07 (the JAX package's gradient bars) for N >= 127, an
+    norm ratio 0.93-1.07 (the JAX package's gradient bars) for N >= 63, an
     absolute bar for the one-row case; a failure names the worst leaf. The
     weight gradients are the same bits on a second launch."""
-    from xrnerf_torch.ops.fused_nerf_mlp import unpack_params
-
     packed = _cuda_pack()
-    for n in (1, 127, 1000, 70001):
+    for n in (1, 63, 64, 65, 127, 128, 129, 1000, 132 * KERNEL_TILE + 1, 70001):
         x, v = (torch.from_numpy(a).cuda() for a in _data(n, seed=n))
         g = torch.from_numpy(np.random.RandomState(n + 1).randn(n, 4).astype(np.float32)).cuda()
         before = fused_nerf_mlp_bwd.launches

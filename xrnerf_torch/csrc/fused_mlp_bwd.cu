@@ -43,7 +43,7 @@
 // such a row is 0, so it adds nothing to any sum. Padded lanes of dx are not
 // written. wgmma, TMA and a coalesced dx store are later work.
 
-#include "fused_nerf_mlp_common.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 namespace tinyb {

@@ -37,7 +37,7 @@
 // What is not carried over from the TPU design: the 512-row tile and the
 // sequential grid. wgmma, TMA and coalesced output staging are later work.
 
-#include "fused_nerf_mlp_common.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 namespace tiny {

@@ -14,11 +14,18 @@ gradients from the f32 dpre (``_bwd_kernel``).
   parameters autograd routes the buffers' gradients back to each
   ``nn.Linear`` (the JAX package's jnp packing, :382-440). It holds the
   operands of the TPU pack (``_packed_shapes``, :281-295), stored [out, in]
-  so each mma B-fragment register is one 32-bit load, with the 384-wide
+  (K contiguous, as the tensor cores read a B operand), with the 384-wide
   ``feature|alpha`` head split into a 256-row feature block and an 8-row
   alpha block, and the rgb head padded to 8 rows rather than 128.
   :func:`pack_params` is the same pack with the weights cast to bf16 once,
   as the serving path caches it.
+- :func:`weight_image` lays the bf16 pack out as the kernels read it: 64 x 64
+  blocks in the 128-byte swizzled order of ``wgmma``'s shared-memory
+  descriptors, so that the kernels stream weights with one-dimensional bulk
+  copies (``fused_nerf_mlp_common.cuh`` describes the layout). A pack made
+  on the card carries its image, so a pack that is cached (serving) or used
+  by a forward and its backward (training) builds it once.
+  :func:`bwd_schedule` sizes the backward's grids.
 - :func:`fused_nerf_mlp_fwd` / :func:`fused_nerf_mlp_bwd` run the forward
   and backward: the plain version for a CPU tensor, the kernel for a CUDA
   tensor (raising if the kernel cannot build or launch — there is no
@@ -33,13 +40,15 @@ gradients from the f32 dpre (``_bwd_kernel``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Mapping, NamedTuple, Tuple
+import functools
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 _BF = torch.bfloat16
-_HEAD = 8  # alpha / rgb heads padded to one mma n-tile
+_HEAD = 8  # alpha / rgb heads padded to one tensor-core n-tile
 KERNEL_WIDTH = 256  # the width the CUDA kernel is compiled for
 KERNEL_PX, KERNEL_PV = 64, 32  # padded posenc widths (63 -> 64, 27 -> 32)
 
@@ -56,11 +65,14 @@ class PackedNerfMLP(NamedTuple):
     dv: int  # views_enc width
     px: int  # padded pts_enc width
     pv: int  # padded views_enc width
+    # weight_image(weights), kept beside a pack that is launched more than once
+    # (with_image); a pack whose weights are replaced must drop it
+    image: Optional[torch.Tensor] = None
 
 
 def _layout(width: int, px: int, pv: int) -> Tuple[List[Tuple[str, int, int]], List[Tuple[str, int]]]:
     """(name, rows, cols) of each packed matrix and (name, len) of each bias,
-    in buffer order. Must match the offsets in ``fused_nerf_mlp_fwd.cu``."""
+    in buffer order. Must match the offsets in ``fused_nerf_mlp_common.cuh``."""
     hv = width // 2
     mats = [("w0", width, px)]
     mats += [(f"w{i}", width, width) for i in range(1, 5)]
@@ -122,9 +134,11 @@ def pack_params_f32(sd: Mapping[str, torch.Tensor], din: int, dv: int) -> Packed
 
 def pack_params(sd: Mapping[str, torch.Tensor], din: int, dv: int) -> PackedNerfMLP:
     """The kernel's pack: :func:`pack_params_f32` with the weights cast to
-    bf16 once (``_cast_weights``, :298-305)."""
+    bf16 once (``_cast_weights``, :298-305); on the card, with the kernels'
+    weight image beside it."""
     p = pack_params_f32(sd, din, dv)
-    return p._replace(weights=p.weights.to(_BF).contiguous(), biases=p.biases.contiguous())
+    p = p._replace(weights=p.weights.to(_BF).contiguous(), biases=p.biases.contiguous())
+    return with_image(p) if p.weights.device.type == "cuda" else p
 
 
 def unpack_params(packed: PackedNerfMLP) -> Dict[str, torch.Tensor]:
@@ -139,6 +153,79 @@ def unpack_params(packed: PackedNerfMLP) -> Dict[str, torch.Tensor]:
         out[name] = packed.biases[o : o + n]
         o += n
     return out
+
+
+_IMAGE_ORDER = ("w0", "w1", "w2", "w3", "w4", "w5h", "w5x", "w6", "w7", "wa", "wf", "wvf", "wvv", "wrgb")
+_BLOCK = 64  # rows and columns of one image block: 128-byte rows of bf16
+
+
+@functools.lru_cache(maxsize=None)
+def weight_image_index(width: int, px: int, pv: int) -> np.ndarray:
+    """For each element of the weight image, the index of the pack element it
+    holds, or the pack's length for padding (read as zero). The image holds
+    the matrices in ``_IMAGE_ORDER`` (the forward kernel's streaming order).
+    A matrix [O, I] (I padded to a multiple of 64) is cut into blocks of 64
+    rows (8 for the heads) x 64 columns, ordered column-block-major; in a
+    block, row r is 64 values = eight 16-byte chunks, and chunk q is stored at
+    position q ^ (r % 8): the 128-byte swizzle."""
+    if width % _BLOCK or px % _BLOCK:
+        raise ValueError(f"the weight image needs width and padded pts_enc width in 64s, got {width}/{px}")
+    mats, _ = _layout(width, px, pv)
+    total = sum(r * c for _, r, c in mats)
+    src, o = {}, 0
+    for name, r, c in mats:
+        src[name] = o + np.arange(r * c, dtype=np.int64).reshape(r, c)
+        o += r * c
+    pos = np.arange(8)
+    parts = []
+    for name in _IMAGE_ORDER:
+        m = src[name]
+        rows, cols = m.shape
+        cpad = _ceil_to(cols, _BLOCK)
+        m = np.pad(m, ((0, 0), (0, cpad - cols)), constant_values=total)
+        rb = min(rows, _BLOCK)
+        blocks = m.reshape(rows // rb, rb, cpad // _BLOCK, 8, 8).transpose(2, 0, 1, 3, 4)  # [c, ob, r, q, e]
+        q = pos[None, :] ^ (np.arange(rb)[:, None] % 8)  # the chunk stored at [r, position]
+        parts.append(np.take_along_axis(blocks, q[None, None, :, :, None], axis=3).reshape(-1))
+    return np.concatenate(parts)
+
+
+_IMAGE_INDEX: Dict[Tuple, torch.Tensor] = {}
+
+
+def weight_image(packed: PackedNerfMLP) -> torch.Tensor:
+    """The kernels' weight image of a bf16 pack (one gather; flat bf16)."""
+    key = (packed.width, packed.px, packed.pv, packed.weights.device)
+    if key not in _IMAGE_INDEX:
+        _IMAGE_INDEX[key] = torch.from_numpy(weight_image_index(*key[:3])).to(key[3])
+    return F.pad(packed.weights, (0, 1)).index_select(0, _IMAGE_INDEX[key])
+
+
+def with_image(packed: PackedNerfMLP) -> PackedNerfMLP:
+    """``packed`` with its weight image beside it (made once)."""
+    return packed if packed.image is not None else packed._replace(image=weight_image(packed))
+
+
+KERNEL_TILE = 128  # rows of one CTA tile: two warpgroups of 64
+KERNEL_SLAB = 64  # rows of one slab of the backward's scratch
+_WGRAD_TILES = 22  # (weight block, 128 output rows) pairs of the weight-gradient pass
+
+
+def bwd_schedule(n: int, sms: int = 132) -> Tuple[int, int, int, int]:
+    """(npad, grid, kchunk, splits) of the backward for ``n`` rows on a card
+    with ``sms`` SMs. ``npad``: rows padded to the 128-row tile. ``grid``:
+    CTAs of the persistent row pass, at most one per SM, CTA ``i`` walking
+    tiles ``i, i + grid, ...``. ``kchunk`` (a multiple of the 64-row slab)
+    and ``splits``: the weight-gradient pass cuts the rows into ``splits``
+    chunks of ``kchunk``, the last one shorter, each summed into its own f32
+    partial; ``splits`` is chosen so that its grid of 22 x ``splits`` CTAs
+    fills the card about twice."""
+    npad = _ceil_to(max(n, 1), KERNEL_TILE)
+    grid = min(npad // KERNEL_TILE, sms)
+    slabs = npad // KERNEL_SLAB
+    want = max(1, min(slabs, round(2 * sms / _WGRAD_TILES)))
+    chunk = -(-slabs // want)
+    return npad, grid, chunk * KERNEL_SLAB, -(-slabs // chunk)
 
 
 def _rb(a: torch.Tensor) -> torch.Tensor:
@@ -236,8 +323,8 @@ def fused_nerf_mlp_bwd_ref(
 _VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "fused_nerf_mlp_fwd": [_VP, _CI, _VP, _CI, _CLL, _VP, _VP, _VP, _VP, _VP],
-    "fused_nerf_mlp_bwd": [_VP, _CI, _VP, _CI, _VP, _CLL, _VP, _VP, _VP, _VP, _VP, _VP,
-                           _VP, _CLL, _VP, _CI, _CLL, _VP, _VP],
+    "fused_nerf_mlp_bwd": [_VP, _CI, _VP, _CI, _VP, _CLL, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                           _VP, _VP, _VP, _VP, _CI, _CI, _CLL, _VP],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -250,7 +337,12 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
         lib = load_library(name)
         fn = getattr(lib, f"xr_{name}")
         fn.argtypes, fn.restype = _ARGTYPES[name], _CI
-        counts = ["weight_elems", "bias_elems"] + (["scratch_features"] if name.endswith("bwd") else [])
+        counts = ["weight_elems", "bias_elems", "image_elems"]
+        if name.endswith("bwd"):
+            counts += ["scratch_bytes_per_slab", "mask_bytes_per_cta", "sum_floats_per_cta", "sm_count",
+                       "rows_smem_bytes", "wgrad_smem_bytes"]
+        else:
+            counts += ["smem_bytes"]
         for what in counts:
             f = getattr(lib, f"xr_{name}_{what}")
             f.argtypes, f.restype = [], _CLL
@@ -261,7 +353,13 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
 
 
 def _check_pack_size(lib, name: str, packed: PackedNerfMLP) -> None:
-    for got, what in ((packed.weights.numel(), "weight_elems"), (packed.biases.numel(), "bias_elems")):
+    """``packed`` (with its image) is what the built kernel reads."""
+    image = packed.image
+    if image.dtype != _BF or image.device != packed.weights.device or not image.is_contiguous():
+        raise ValueError("the weight image must be a contiguous bfloat16 tensor on the weights' device")
+    sizes = ((packed.weights.numel(), "weight_elems"), (packed.biases.numel(), "bias_elems"),
+             (image.numel(), "image_elems"))
+    for got, what in sizes:
         want = getattr(lib, f"xr_{name}_{what}")()
         if got != want:
             raise ValueError(f"packed {what} hold {got} elements, the kernel expects {want}")
@@ -312,6 +410,7 @@ def fused_nerf_mlp_fwd(
         return fused_nerf_mlp_ref(x, v, packed)
     _check_kernel_args(x, v, packed)
     lib = _kernel_lib("fused_nerf_mlp_fwd")
+    packed = with_image(packed)
     _check_pack_size(lib, "fused_nerf_mlp_fwd", packed)
     n = x.shape[0]
     rgb = torch.empty((n, 3), dtype=torch.float32, device=x.device)
@@ -320,7 +419,7 @@ def fused_nerf_mlp_fwd(
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.xr_fused_nerf_mlp_fwd(
             x.data_ptr(), x.shape[1], v.data_ptr(), v.shape[1], n,
-            packed.weights.data_ptr(), packed.biases.data_ptr(),
+            packed.image.data_ptr(), packed.biases.data_ptr(),
             rgb.data_ptr(), sigma.data_ptr(), stream,
         )
     _raise_on(lib, err, "fused_nerf_mlp_fwd")
@@ -329,16 +428,6 @@ def fused_nerf_mlp_fwd(
 
 
 fused_nerf_mlp_fwd.launches = 0
-
-
-
-def _bwd_splits(n: int) -> Tuple[int, int, int]:
-    """(npad, kchunk, splits) of the backward's weight-gradient pass: rows
-    padded to the 128-row tile, then cut into at most 64 chunks of a
-    multiple of 128 rows, each summed into its own f32 partial."""
-    npad = _ceil_to(max(n, 1), 128)
-    kchunk = _ceil_to(-(-npad // 64), 128)
-    return npad, kchunk, -(-npad // kchunk)
 
 
 def fused_nerf_mlp_bwd(
@@ -362,20 +451,30 @@ def fused_nerf_mlp_bwd(
     if n == 0:
         return torch.zeros((0, x.shape[1]), **f32), torch.zeros((0, v.shape[1]), **f32), dw, db
     lib = _kernel_lib("fused_nerf_mlp_bwd")
+    packed = with_image(packed)
     _check_pack_size(lib, "fused_nerf_mlp_bwd", packed)
-    npad, kchunk, splits = _bwd_splits(n)
+    with torch.cuda.device(x.device):
+        sms = lib.xr_fused_nerf_mlp_bwd_sm_count()
+    if sms < 1:
+        raise RuntimeError("fused_nerf_mlp_bwd: the card did not give its SM count")
+    npad, grid, kchunk, splits = bwd_schedule(n, sms)
     dx = torch.empty((n, x.shape[1]), **f32)
     dv = torch.empty((n, v.shape[1]), **f32)
-    scratch = torch.empty(lib.xr_fused_nerf_mlp_bwd_scratch_features() * npad, dtype=_BF, device=x.device)
+    u8 = dict(dtype=torch.uint8, device=x.device)
+    scratch = torch.empty(lib.xr_fused_nerf_mlp_bwd_scratch_bytes_per_slab() * (npad // KERNEL_SLAB), **u8)
+    masks = torch.empty(lib.xr_fused_nerf_mlp_bwd_mask_bytes_per_cta() * grid, **u8)
+    # one slice per CTA and warp of the row pass, which adds into it tile after tile: it must
+    # start zeroed and belong to this launch's grid alone, or the sums are not the same bits
+    sums = torch.zeros(lib.xr_fused_nerf_mlp_bwd_sum_floats_per_cta() * grid, **f32)
     wpart = torch.empty(splits * dw.numel(), **f32)
-    bpart = torch.empty(2 * (npad // 128) * db.numel(), **f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.xr_fused_nerf_mlp_bwd(
             x.data_ptr(), x.shape[1], v.data_ptr(), v.shape[1], g.data_ptr(), n,
-            packed.weights.data_ptr(), packed.biases.data_ptr(),
+            packed.image.data_ptr(), packed.weights.data_ptr(), packed.biases.data_ptr(),
             dx.data_ptr(), dv.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            scratch.data_ptr(), npad, wpart.data_ptr(), splits, kchunk, bpart.data_ptr(), stream,
+            scratch.data_ptr(), masks.data_ptr(), sums.data_ptr(), wpart.data_ptr(),
+            grid, splits, kchunk, stream,
         )
     _raise_on(lib, err, "fused_nerf_mlp_bwd")
     fused_nerf_mlp_bwd.launches += 1
@@ -400,21 +499,23 @@ class FusedNerfMLPFunction(torch.autograd.Function):
             # a bf16 leaf would round every weight gradient to bf16
             raise TypeError(f"weights and biases must be float32, got {weights.dtype} / {biases.dtype}")
         packed = PackedNerfMLP(weights.to(_BF).contiguous(), biases.contiguous(), *meta)
+        if x.device.type == "cuda":  # the kernels' image, made once for this forward and its backward
+            packed = with_image(packed)
         rgb, sigma = fused_nerf_mlp_fwd(x, v, packed)
-        ctx.save_for_backward(x, v, packed.weights, packed.biases)
+        ctx.save_for_backward(x, v, packed.weights, packed.biases, packed.image)
         ctx.meta = meta
         return rgb, sigma
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_rgb, grad_sigma):
-        x, v, wb, bb = ctx.saved_tensors
+        x, v, wb, bb, image = ctx.saved_tensors
         g = torch.zeros((x.shape[0], 4), dtype=torch.float32, device=x.device)
         if grad_rgb is not None:
             g[:, :3] = grad_rgb
         if grad_sigma is not None:
             g[:, 3] = grad_sigma
-        dx, dv, dw, db = fused_nerf_mlp_bwd(x, v, g, PackedNerfMLP(wb, bb, *ctx.meta))
+        dx, dv, dw, db = fused_nerf_mlp_bwd(x, v, g, PackedNerfMLP(wb, bb, *ctx.meta, image))
         need_x, need_v = ctx.needs_input_grad[:2]
         return (dx if need_x else None), (dv if need_v else None), dw, db, None
 
