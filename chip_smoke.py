@@ -40,7 +40,8 @@ Phases, each printed as one JSON line:
              on the lego camera over an analytic scene (a coloured sphere
              over white), logging every 10 steps and checkpointing at the
              end: finite losses, last window below the first, 2 forward and
-             2 backward launches per step, ms/step, rays/s, MLP TFLOP/s;
+             2 backward launches per step, ms/step, rays/s, MLP TFLOP/s, and
+             the host time of one batch (pixels drawn without replacement);
              then ``resume_from`` the checkpoint runs to step 42. A further
              step under torch.profiler (``train_profile`` line).
 7. train_grads - one 256-ray batch (perturb off): the card path's
@@ -74,7 +75,8 @@ Phases, each printed as one JSON line:
              (``ngp_profile``: the kernels', the gather's and the sorts'
              share) and the count of host syncs in one chunk (``ngp_syncs``).
 11. kernel (tiny-MLP backwards) - ``fused_mlp2_bwd`` and ``fused_mlp3_bwd``
-             against their plain versions at the same shapes and N: per leaf
+             against their plain versions at the same shapes, N = 127, 128,
+             129 (ragged tiles and warpgroup halves) and the N above: per leaf
              (dx and every weight and bias gradient) cosine > 0.99 and norm
              ratio 0.93-1.07, dx also with more than 99 % of its values
              within 3 % of its scale, the same bits on a second launch;
@@ -86,13 +88,19 @@ Phases, each printed as one JSON line:
              (2,097,152 x 2 rows into 524,288, indices of random points),
              the coarsest dense level (into 4,096), the brick shape
              (262,144 x 16 into 65,536, 70 % all-zero rows, skipped) and
-             1000 rows with negative ids; library time: ``index_add_``.
+             1000 rows with negative ids; library time: ``index_add_``. The
+             fifth case, ``vertex_step``, runs after phase 15 on the 16
+             levels' corner indices and update rows of one real training step
+             (march order), captured from ``ngp_train``'s trainer:
+             ``scatter_add_rows_levels`` in one launch against its plain
+             version and its time, the same on random points; library time:
+             16 ``index_add_``.
 13. ngp_train - ``Trainer.run`` trains Instant-NGP at full width (fused, the
              config's Adam and EMA, ``N_rand`` 4096) for 64 steps on the
              analytic sphere seen from the 40 orbit cameras, in
              ``HashNerfDataset``'s batch format: grid refreshes before steps
              0, 16, 32, 48; per step exactly one forward and one backward
-             launch of each tiny MLP and 16 scatters, one more ``fused_mlp2``
+             launch of each tiny MLP and one scatter (all 16 levels), one more ``fused_mlp2``
              forward per refresh; falling loss, finite logs, the EMA copy's
              grid equal to the network's; a checkpoint and a resume to step
              66. ``ngp_train_compacted``: 8 more steps from the checkpoint at
@@ -106,7 +114,7 @@ Phases, each printed as one JSON line:
              Adam step and the EMA update timed alone, and the count of host
              syncs in a step (must be 0).
 16. ngp_brick_train - ``hash_layout="brick"``, one lattice, full width: 16
-             steps, 16 scatters per step, finite and falling loss.
+             steps, one scatter per step and lattice, finite and falling loss.
 17. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
@@ -142,6 +150,7 @@ FWD_ROWS = (1000, 1_048_576, 3_145_728)  # ragged; one coarse and one fine eval 
 BWD_ROWS = (1000, 262_144, 786_432)  # ragged; one coarse and one fine train launch
 TRAIN_STEPS, TRAIN_LOG, N_RAND = 40, 10, 4096  # N_RAND: bench.py's flagship batch
 TINY_ROWS = (1000, 65_536, 262_144)  # ragged; one grid refresh; one render chunk
+TINY_BWD_ROWS = (127, 128, 129) + TINY_ROWS  # and ragged tiles, warpgroup halves
 TINY_SHAPES = {"fused_mlp2_fwd": (32, 64, 16), "fused_mlp3_fwd": (31, 64, 64, 3)}
 # Seeded NGP field: flax's init, then the table and the density column of
 # the density net are scaled so that raw density is spread widely, and the
@@ -365,11 +374,24 @@ class SphereScene:
         """``N_rand`` random pixels of one random camera. Only their rays are
         made (``get_rays_np``'s arithmetic for the chosen pixels), so the host's
         part of a step stays small, as with a dataset that holds its rays.
-        Pixels are drawn with replacement (no permutation of the 640,000
-        pixels per step); a repeat among 4096 draws is rare and harmless."""
+        Pixels are distinct, as ``SceneDataset`` draws them: a few more than
+        ``N_rand`` are drawn (4,096 draws of 640,000 pixels repeat about 13
+        times), repeats dropped, the first ``N_rand`` kept in draw order, and
+        more drawn in the rare case that too few are left (no permutation of
+        the 640,000 pixels per step; one sort of the draws)."""
         rng = np.random.RandomState(self.seed + step)
         pose = self.poses[rng.randint(len(self.poses))].astype(np.float32)
-        pix = rng.randint(self.H * self.W, size=self.N_rand)
+        extra = self.N_rand // 32
+        pix = rng.randint(self.H * self.W, size=self.N_rand + extra)
+        while True:
+            order = np.argsort(pix)
+            fresh = np.ones(len(pix), bool)
+            fresh[1:] = pix[order[1:]] != pix[order[:-1]]
+            keep = np.sort(order[fresh])
+            if len(keep) >= self.N_rand:
+                break
+            pix = np.concatenate([pix, rng.randint(self.H * self.W, size=extra)])
+        pix = pix[keep[: self.N_rand]]
         col, row = (pix % self.W).astype(np.float32), (pix // self.W).astype(np.float32)
         K = self.K
         dirs = np.stack([(col - K[0, 2]) / K[0, 0], -(row - K[1, 2]) / K[1, 1], -np.ones_like(col)], axis=-1)
@@ -526,13 +548,18 @@ def train_phase(model_cfg, cfg, work_dir):
     if resumed.start_step != TRAIN_STEPS or resumed.run() != TRAIN_STEPS + 2:
         raise AssertionError("resume did not continue from the checkpoint to step 42")
     ms_step = float(np.median([w["ms_per_step"] for w in rec.windows[1:]]))
+    batch_ms = []
+    for step in range(20):
+        t0 = time.perf_counter()
+        ds.train_batch(step)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
     rows = N_RAND * (model_cfg["n_samples"] + model_cfg["n_samples"] + model_cfg["n_importance"])
     floor_ms = 4 * MLP_FLOP_PER_ROW * rows / H100_BF16_FLOPS * 1e3  # forward 1x + backward 3x
     line = {"phase": "train", "config": "configs/nerf/nerf_blender.py", "fused": True, "N_rand": N_RAND,
             "steps": TRAIN_STEPS, "resumed_to": TRAIN_STEPS + 2, "window_losses": losses,
             "window_ms_per_step": [w["ms_per_step"] for w in rec.windows],
             "ms_per_step": ms_step, "rays_per_s": N_RAND / (ms_step * 1e-3),
-            "points_per_s": rows / (ms_step * 1e-3), "mlp_rows_per_step": rows,
+            "batch_host_ms": float(np.median(batch_ms)), "points_per_s": rows / (ms_step * 1e-3), "mlp_rows_per_step": rows,
             "mlp_tflops_bench_count": 3 * MLP_FLOP_PER_ROW * rows / (ms_step * 1e-3) / 1e12,
             "mlp_floor_ms": floor_ms, "mlp_floor_share": floor_ms / ms_step,
             "launches": launches, "launches_per_step": {k: n / TRAIN_STEPS for k, n in launches.items()},
@@ -844,7 +871,7 @@ def tiny_mlp_bwd_phase(dev, gen):
             return h.float()
 
         rows[name] = {}
-        for n in TINY_ROWS:
+        for n in TINY_BWD_ROWS:
             # four input sets, walked in turn, so each call finds the L2 cold
             xs = [(torch.rand((n, shape[0]), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16).float()
                   for _ in range(4)]
@@ -940,15 +967,9 @@ def scatter_phase(dev, gen, model_cfg):
         got = scatter_add_rows(idx, vals, num_rows, skip_zero_rows=skip)
         want = scatter_add_rows_plain(idx, vals, num_rows, skip_zero_rows=skip)
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"scatter {case}: non-finite kernel output")
-        err = (got - want).abs()
-        bar = SCATTER_RTOL * float(want.abs().max()) + SCATTER_RTOL * want.abs()
-        if bool((err > bar).any()):
-            raise AssertionError(f"scatter {case}: {int((err > bar).sum())} of {err.numel()} sums off; max abs err {float(err.max())}")
+        err = scatter_check(case, got, want)
         got32 = scatter_add_rows(idx.int(), vals, num_rows, skip_zero_rows=skip)  # the int32 entry point
-        if bool(((got32 - want).abs() > bar).any()):
-            raise AssertionError(f"scatter {case}: int32 ids disagree")
+        scatter_check(f"{case} int32", got32, want)
         turn = [0]
 
         def walk(f, **kw):
@@ -974,7 +995,7 @@ def scatter_phase(dev, gen, model_cfg):
         bound_ms, bound_by = bound(n * w, nbytes)  # one addition per value
         kept = (idx >= 0) & ((vals != 0).any(-1) if skip else True)
         row = {"phase": "kernel", "name": "scatter_add_rows", "case": case, "rows": n, "width": w, "num_rows": num_rows,
-               "skip_zero_rows": skip, "kept_share": float(kept.float().mean()), "max_abs_err": float(err.max()),
+               "skip_zero_rows": skip, "kept_share": float(kept.float().mean()), "max_abs_err": err,
                "largest_sum": float(want.abs().max()), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
                "ns_per_row": ms * 1e6 / n, "roofline_share": bound_ms / ms}
@@ -1017,22 +1038,32 @@ class NGPSphereScene(OrbitCameras):
         return {"rays_o": o, "rays_d": d, "target": colour, "alpha": hit[:, None].astype(np.float32)}
 
 
-NGP_KERNELS = ("fused_mlp2_fwd", "fused_mlp2_bwd", "fused_mlp3_fwd", "fused_mlp3_bwd", "scatter_add_rows")
+# kernel groups of an NGP training step's profile
+NGP_STEP_GROUPS = {
+    "tiny_mlp_fwd": ["tiny_mlp_fwd_kernel"], "tiny_mlp_bwd": ["tiny_mlp_bwd_kernel", "reduce_partials_kernel"],
+    "scatter": ["scatter_rows_"], "gather": ["scatter_gather", "indexSelect", "vectorized_gather"],
+    "sort": ["sort", "Sort", "radix", "Radix"], "index_add": ["indexAdd", "index_add", "indexFuncLarge", "indexFuncSmall"],
+    "elementwise_long": lambda k: "elementwise" in k and any(t in k for t in ("<long", "long,", "long>")),
+    "adam": ["multi_tensor_apply"]}
 
 
 def ngp_counters():
+    """The launch counters of the NGP path's kernels: ``scatter_add_rows`` is
+    the scatter kernel as the encodings launch it (all levels at once);
+    the one-level wrapper of the same kernel must not launch there."""
     from xrnerf_torch.ops import fused_mlp as fm
-    from xrnerf_torch.ops.scatter_rows import scatter_add_rows
+    from xrnerf_torch.ops import scatter_rows as sr
 
     return {"fused_mlp2_fwd": fm.fused_mlp2, "fused_mlp2_bwd": fm.fused_mlp2_bwd, "fused_mlp3_fwd": fm.fused_mlp3,
-            "fused_mlp3_bwd": fm.fused_mlp3_bwd, "scatter_add_rows": scatter_add_rows}
+            "fused_mlp3_bwd": fm.fused_mlp3_bwd, "scatter_add_rows": sr.scatter_add_rows_levels,
+            "scatter_add_rows_one_level": sr.scatter_add_rows}
 
 
 def check_ngp_run(what, tr, rec, launches, steps, refreshes, scatters_per_step):
     """What every NGP training run must show: exact launch counts, finite
     logs, and the EMA copy's grid equal to the network's."""
     want = {"fused_mlp2_fwd": steps + refreshes, "fused_mlp2_bwd": steps, "fused_mlp3_fwd": steps,
-            "fused_mlp3_bwd": steps, "scatter_add_rows": scatters_per_step * steps}
+            "fused_mlp3_bwd": steps, "scatter_add_rows": scatters_per_step * steps, "scatter_add_rows_one_level": 0}
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
     for w in rec.windows:
@@ -1078,8 +1109,7 @@ def ngp_train_phases(work_dir):
     reached, launches = run(tr)
     if reached != NGP_TRAIN_STEPS:
         raise AssertionError(f"NGP training stopped at step {reached}")
-    levels = model_cfg["n_levels"]
-    check_ngp_run("ngp_train", tr, rec, launches, NGP_TRAIN_STEPS, NGP_TRAIN_STEPS // NGP_AUX_INTERVAL, levels)
+    check_ngp_run("ngp_train", tr, rec, launches, NGP_TRAIN_STEPS, NGP_TRAIN_STEPS // NGP_AUX_INTERVAL, 1)
     losses = [w["loss"] for w in rec.windows]
     if len(losses) != NGP_TRAIN_STEPS // NGP_TRAIN_LOG or not losses[-1] < losses[0]:
         raise AssertionError(f"NGP loss did not fall: windows {losses}")
@@ -1115,7 +1145,7 @@ def ngp_train_phases(work_dir):
     reached, claunches = run(ctr)
     if reached != NGP_TRAIN_STEPS + NGP_COMPACT_STEPS:
         raise AssertionError(f"compacted NGP training stopped at step {reached}")
-    check_ngp_run("ngp_train_compacted", ctr, crec, claunches, NGP_COMPACT_STEPS, 1, levels)
+    check_ngp_run("ngp_train_compacted", ctr, crec, claunches, NGP_COMPACT_STEPS, 1, 1)
     if not crec.windows[-1]["loss"] < losses[0]:
         raise AssertionError(f"compacted run: loss {crec.windows[-1]['loss']} not below the first window's {losses[0]}")
     cms = crec.windows[-1]["ms_per_step"]
@@ -1152,12 +1182,7 @@ def ngp_train_phases(work_dir):
 
     # 15. one step by kernel group, after the main path's counts were read
     batch = tr._put_batch(ds.train_batch(10_000))
-    groups = {"tiny_mlp_fwd": ["tiny_mlp_fwd_kernel"], "tiny_mlp_bwd": ["tiny_mlp_bwd_kernel", "reduce_partials_kernel"],
-              "scatter": ["scatter_rows_"], "gather": ["scatter_gather", "indexSelect", "vectorized_gather"],
-              "sort": ["sort", "Sort", "radix", "Radix"], "index_add": ["indexAdd", "index_add", "indexFuncLarge", "indexFuncSmall"],
-              "elementwise_long": lambda k: "elementwise" in k and any(t in k for t in ("<long", "long,", "long>")),
-              "adam": ["multi_tensor_apply"]}
-    prof = profile_device(lambda: tr.train_step(batch, 10_000), ms_step, "ngp_train_profile", groups, top=12)
+    prof = profile_device(lambda: tr.train_step(batch, 10_000), ms_step, "ngp_train_profile", NGP_STEP_GROUPS, top=12)
     prof["adam_step_ms"] = time_ms(tr.optimizer.step, reps=5)
     prof["ema_update_ms"] = time_ms(tr._update_ema, reps=5)
     prof["table_entries"] = tr.network.field.encoding.table.numel()
@@ -1167,6 +1192,7 @@ def ngp_train_phases(work_dir):
     emit(prof)
     if n_syncs != 0:
         raise AssertionError(f"{n_syncs} host syncs in one NGP training step: {inside}")
+    step_scatter = capture_vertex_step(tr, batch, 10_002)  # for the scatter's vertex_step case
     del tr, batch
     torch.cuda.empty_cache()
 
@@ -1178,7 +1204,7 @@ def ngp_train_phases(work_dir):
     reached, blaunches = run(btr)
     if reached != NGP_BRICK_STEPS:
         raise AssertionError(f"brick training stopped at step {reached}")
-    check_ngp_run("ngp_brick_train", btr, brec, blaunches, NGP_BRICK_STEPS, 1, levels * brick_cfg["n_lattices"])
+    check_ngp_run("ngp_brick_train", btr, brec, blaunches, NGP_BRICK_STEPS, 1, brick_cfg["n_lattices"])
     blosses = [w["loss"] for w in brec.windows]
     if not blosses[-1] < blosses[0]:
         raise AssertionError(f"brick loss did not fall: windows {blosses}")
@@ -1189,7 +1215,95 @@ def ngp_train_phases(work_dir):
           "scatter_shape": [n_rows, 8 * model_cfg["n_features"], btr.network.field.encoding.rows], "launches": blaunches})
     del btr
     torch.cuda.empty_cache()
-    return {k: launches[k] + claunches[k] + blaunches[k] for k in launches}
+    return {k: launches[k] + claunches[k] + blaunches[k] for k in launches}, step_scatter
+
+
+def capture_vertex_step(tr, batch, step):
+    """The ids, update rows, row counts and table rows that one training
+    step of ``tr`` (vertex layout) hands the scatter, copied."""
+    from xrnerf_torch.models.embedders import hashenc
+    from xrnerf_torch.ops import scatter_rows as sr
+
+    seen = []
+
+    def record(idx, vals, rows, num_rows, *args, **kw):
+        seen.append((idx.clone(), vals.clone(), list(rows), num_rows))
+        return sr.scatter_add_rows_levels(idx, vals, rows, num_rows, *args, **kw)
+
+    hashenc.scatter_add_rows_levels = record
+    try:
+        tr.train_step(batch, step)
+    finally:
+        hashenc.scatter_add_rows_levels = sr.scatter_add_rows_levels
+    torch.cuda.synchronize()
+    if len(seen) != 1:
+        raise AssertionError(f"one training step called the scatter {len(seen)} times")
+    return seen[0]
+
+
+def scatter_check(case, got, want):
+    """Max abs error of the kernel's sums against the plain version's; raises
+    outside rtol 1e-4 plus 1e-4 of the largest sum."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"scatter {case}: non-finite kernel output")
+    err = (got - want).abs()
+    bar = SCATTER_RTOL * float(want.abs().max()) + SCATTER_RTOL * want.abs()
+    if bool((err > bar).any()):
+        raise AssertionError(f"scatter {case}: {int((err > bar).sum())} of {err.numel()} sums off; max abs err {float(err.max())}")
+    return float(err.max())
+
+
+def vertex_streams(dev, gen, model_cfg, idx, vals):
+    """One training step's [L, M] ids and [L, M, W] update rows (march
+    order), and the same shapes for random points: the vertex encoding's
+    corners of M / 8 uniform points with random gradient rows."""
+    from xrnerf_torch.models.embedders.hashenc import HashEncoding, _corner_weights
+
+    L, M, W = vals.shape
+    enc = HashEncoding(**{k: model_cfg[k] for k in ("n_levels", "n_features", "log2_table_size", "base_res", "max_res")}).to(dev)
+    ridx, t = enc._corner_cells(torch.rand((M // 8, 3), generator=gen, device=dev))
+    rg = torch.randn((L, M // 8, W), generator=gen, device=dev)
+    return {"march": (idx, vals), "random": (ridx.reshape(L, M), (_corner_weights(t, dim=1)[..., None] * rg[:, None]).reshape(L, M, W))}
+
+
+def vertex_step_phase(dev, gen, model_cfg, step):
+    """``scatter_add_rows_levels`` on one real training step's 16 levels (the
+    ids in march order) and on random points: one launch against its plain
+    version, and 16 ``index_add_`` as the library call."""
+    from xrnerf_torch.ops import scatter_rows as sr
+
+    idx, vals, rows, T = step
+    L, M, W = vals.shape
+    streams = vertex_streams(dev, gen, model_cfg, idx, vals)
+    row = {"phase": "kernel", "name": "scatter_add_rows", "case": "vertex_step", "levels": L, "rows": M, "width": W,
+           "num_rows": T, "rows_per_level": rows, "modes": sr.level_modes(rows, W)}
+    for label, (i, v) in streams.items():
+        got = sr.scatter_add_rows_levels(i, v, rows, T)
+        want = sr.scatter_add_rows_levels_plain(i, v, rows, T)
+        torch.cuda.synchronize()
+        err = scatter_check(f"vertex_step {label}", got, want)
+        scatter_check(f"vertex_step {label} int32", sr.scatter_add_rows_levels(i.int(), v, rows, T), want)
+        ms = time_ms(lambda: sr.scatter_add_rows_levels(i, v, rows, T), inner=10, head_start_ms=4.0)
+        if label == "march":
+            lib_idx = [torch.where((i[lvl] >= 0) & (i[lvl] < rows[lvl]), i[lvl], rows[lvl]) for lvl in range(L)]
+
+            def library():
+                return [torch.zeros((rows[lvl] + 1, W), device=dev).index_add_(0, lib_idx[lvl], v[lvl]) for lvl in range(L)]
+
+            nbytes = L * (M * i.element_size() + M * W * 4 + T * W * 4)
+            bound_ms, bound_by = bound(L * M * W, nbytes)
+            row.update({"max_abs_err": err, "largest_sum": float(want.abs().max()), "ms": ms,
+                        "plain_ms": time_ms(lambda: sr.scatter_add_rows_levels_plain(i, v, rows, T), inner=2, head_start_ms=4.0),
+                        "library_ms": time_ms(library, inner=2, head_start_ms=4.0), "bound_ms": bound_ms,
+                        "bound_by": bound_by, "bytes": nbytes, "roofline_share": bound_ms / ms})
+            del lib_idx
+        else:
+            row.update({"random_points": {"max_abs_err": err, "ms": ms}})
+        del got, want
+    emit(row)
+    del streams
+    torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
@@ -1230,13 +1344,17 @@ def main() -> int:
         ptxas[name] = [ln.strip() for ln in (log.read_text() if log.exists() else "").splitlines()
                        if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     from xrnerf_torch.ops import fused_nerf_mlp as nerf_ops
+    from xrnerf_torch.ops import fused_mlp as tiny_ops
     from xrnerf_torch.ops import scatter_rows as scatter_ops
 
     fwd_lib, bwd_lib = (nerf_ops._kernel_lib(name) for name in names[:2])
+    tiny_bwd_lib = tiny_ops._kernel_lib("bwd")
     emit({"phase": "build", "kernels": names, "seconds": time.perf_counter() - t0, "ptxas": ptxas,
           "dynamic_smem_bytes": {"fused_nerf_mlp_fwd_kernel": fwd_lib.xr_fused_nerf_mlp_fwd_smem_bytes(),
                                  "fused_nerf_mlp_bwd_rows": bwd_lib.xr_fused_nerf_mlp_bwd_rows_smem_bytes(),
                                  "fused_nerf_mlp_bwd_wgrad": bwd_lib.xr_fused_nerf_mlp_bwd_wgrad_smem_bytes()},
+          "tiny_mlp_bwd_smem_bytes": {"fused_mlp2_bwd": tiny_bwd_lib.xr_fused_mlp2_bwd_smem_bytes(),
+                                      "fused_mlp3_bwd": tiny_bwd_lib.xr_fused_mlp3_bwd_smem_bytes()},
           "scatter_vector_reductions": bool(scatter_ops._kernel_lib().xr_scatter_add_rows_vectorised())})
 
     # 3. kernel against its plain version
@@ -1349,9 +1467,11 @@ def main() -> int:
     # 13-16. Instant-NGP training at full width
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_ngp_train_")
     try:
-        ngp_train_launches = ngp_train_phases(work_dir)
+        ngp_train_launches, step_scatter = ngp_train_phases(work_dir)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+    scatter_rows["vertex_step"] = vertex_step_phase(dev, gen, ngp_model, step_scatter)
+    del step_scatter
 
     # 17. kernels
     k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
@@ -1376,9 +1496,9 @@ def main() -> int:
         {"name": "scatter_add_rows", "route": "cuda", "source": "xrnerf_torch/csrc/scatter_rows.cu",
          "replaces": "xrnerf_tpu/ops/pallas/scatter_rows.py:62", "launches": ngp_train_launches["scatter_add_rows"],
          "max_abs_err": max(r["max_abs_err"] for r in scatter_rows.values()),
-         **{k: scatter_rows["vertex_hashed"][k] for k in keys},
+         **{k: scatter_rows["vertex_step"][k] for k in keys}, "levels": scatter_rows["vertex_step"]["levels"],
          "other_shapes": {c: {k: r[k] for k in ("rows", "width", "num_rows", "ms", "plain_ms", "bound_ms", "library_ms")}
-                          for c, r in scatter_rows.items() if c != "vertex_hashed"}},
+                          for c, r in scatter_rows.items() if c != "vertex_step"}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

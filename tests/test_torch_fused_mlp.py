@@ -237,9 +237,11 @@ def _leaf_report(got, want):
 def test_cuda_bwd_kernel_matches_plain_version(shape):
     """N >= 127: per leaf cosine > 0.99 and norm ratio 0.93-1.07 (the JAX
     package's fused-MLP bars). N = 1: every value within 3% of its leaf's
-    largest entry plus 1e-6. Two launches give the same bits."""
+    largest entry plus 1e-6. Two launches give the same bits. The row counts
+    cover one row, a ragged first tile, one and a half 64-row warpgroup
+    halves, and a ragged last tile after many grid-stride turns."""
     wrapper, plain, _ = _bwd_fns(shape)
-    for n in (1, 127, 1000, 70001):
+    for n in (1, 127, 128, 129, 522, 1000, 70001, 262_144 + 37):
         args = _bwd_args(_cuda_args(shape, n))
         g = torch.from_numpy(np.random.RandomState(n).randn(n, shape[-1]).astype(np.float32)).cuda() / n
         before = wrapper.launches
@@ -277,3 +279,20 @@ def test_cuda_path_refuses_gradients_and_unsupported_shapes():
     wide = _cuda_args((48, 64, 16), 64)
     with pytest.raises(ValueError, match="d_in <="), torch.no_grad():
         fused_mlp2(*wide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES[::2], ids=lambda s: "x".join(map(str, s)))
+def test_cuda_bwd_refuses_misaligned_inputs(shape):
+    """The backward kernel copies x and g in 16-byte blocks: a view that does
+    not start on a 16-byte boundary is refused, not copied."""
+    wrapper, _, _ = _bwd_fns(shape)
+    args = _bwd_args(_cuda_args(shape, 256))
+    g = torch.zeros(256, shape[-1]).cuda()
+    x = torch.zeros(256 * shape[0] + 1).cuda()[1:].view(256, shape[0])
+    x.copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wrapper(x, *args[1:], g)
+    gm = torch.zeros(256 * shape[-1] + 1).cuda()[1:].view(256, shape[-1])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wrapper(*args, gm)

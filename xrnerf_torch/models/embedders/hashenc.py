@@ -16,10 +16,11 @@ The hash is computed in int64 and masked to ``T - 1``: T is a power of two,
 so the low bits equal the JAX package's wrapped-int32 product followed by a
 non-negative ``% T``.
 
-The table's gradient is the transpose of the gather, a row scatter-add: per
-level the [N * 8, F] update rows ``corner weight x upstream gradient`` go
-through :func:`xrnerf_torch.ops.scatter_rows.scatter_add_rows` (the CUDA
-kernel on the card, ``index_add_`` on the CPU) into the level's
+The table's gradient is the transpose of the gather, a row scatter-add: the
+[L, N * 8, F] update rows ``corner weight x upstream gradient`` of all levels
+go through one call of
+:func:`xrnerf_torch.ops.scatter_rows.scatter_add_rows_levels` (one CUDA
+launch on the card, ``index_add_`` on the CPU) into each level's
 ``min(res^3, T)`` rows, dense levels too: the JAX package's sorted-segment
 and separable-splat paths are workarounds for a slow scatter and are not
 here. The vertex forward keeps the corner indices and the fractions for the
@@ -32,7 +33,8 @@ Brick layout: at hash(cell) one row of 8 * F lanes holds the features of all
 (``n_lattices`` staggered lattices, averaged or cross-faded). Table
 [L, n_lattices, tb, 8 * F] with tb = 2^(log2_table_size - 3) / n_lattices:
 the vertex table's parameter count. Its backward gathers again instead of
-keeping rows, and scatters [N, 8 * F] rows with ``skip_zero_rows``.
+keeping rows, and scatters [L, N, 8 * F] rows with ``skip_zero_rows``, one
+launch per lattice.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ...ops.scatter_rows import scatter_add_rows
+from ...ops.scatter_rows import scatter_add_rows_levels
 
 # NGP's spatial hash primes (pi1 = 1 for x).
 _PRIMES = (1, 2654435761, 805459861)
@@ -87,6 +89,7 @@ class HashEncoding(nn.Module):
         scale = per_level_scale(max_res, base_res, n_levels)
         res = _level_resolutions(base_res, scale, n_levels)
         self.resolutions = tuple(int(r) for r in res)
+        self.level_rows = tuple(min(r**3, self.table_size) for r in self.resolutions)  # V per level
         self.table = nn.Parameter(torch.empty(n_levels, self.table_size, n_features))
         # per-level constants, made once so no call builds a device tensor
         self.register_buffer("_res_m1", torch.from_numpy((res - 1).astype(np.float32))[:, None, None], persistent=False)
@@ -184,16 +187,11 @@ class _VertexLookup(torch.autograd.Function):
         g3 = g.reshape(n, L, F).float().permute(1, 0, 2)  # [L, N, F]
         grad_table = grad_x = None
         if ctx.needs_input_grad[0]:
-            w8 = _corner_weights(t, dim=1)  # [L, 8, N]
-            levels = []
-            for lvl in range(L):
-                # [8 * N, F] update rows into the level's V rows; a dense level
-                # occupies only res^3 < T rows, the rest stay zero
-                rows = (w8[lvl][..., None] * g3[lvl][None]).reshape(8 * n, F)
-                v = min(enc.resolutions[lvl] ** 3, T)
-                gl = scatter_add_rows(idx[lvl].reshape(-1), rows, v)
-                levels.append(gl if v == T else torch.cat([gl, gl.new_zeros((T - v, F))]))
-            grad_table = torch.stack(levels).to(table.dtype)
+            # [L, 8 * N, F] update rows, built for all levels at once, into each
+            # level's V rows in one launch; a dense level occupies only res^3 < T
+            # rows, the rest stay zero
+            rows = (_corner_weights(t, dim=1)[..., None] * g3[:, None]).reshape(L, 8 * n, F)
+            grad_table = scatter_add_rows_levels(idx.reshape(L, 8 * n), rows, enc.level_rows, T).to(table.dtype)
         if ctx.needs_input_grad[1]:
             gdot = []
             for lvl in range(L):
@@ -347,9 +345,7 @@ class _BrickLookup(torch.autograd.Function):
             gk = g3 * us[k][..., None] if enc.smooth else g3 / K
             if need_table:
                 gr = (w8[..., None] * gk[:, :, None, :]).reshape(L, n, 8 * F)
-                grad_lat.append(torch.stack(
-                    [scatter_add_rows(idx[lvl], gr[lvl], tb, skip_zero_rows=True) for lvl in range(L)]
-                ))  # [L, tb, 8F]
+                grad_lat.append(scatter_add_rows_levels(idx, gr, [tb] * L, tb, skip_zero_rows=True))  # [L, tb, 8F]
             if need_x:
                 gdot = (rows.float() * gk[:, :, None, :]).sum(dim=-1)  # [L, N, 8]
                 grad_x = grad_x + (_dweights_dt(t, gdot) * enc._res_m1).sum(dim=0).to(x.dtype)

@@ -105,9 +105,11 @@ def _kernel_lib(which: str = "fwd") -> ctypes.CDLL:
                                (f"xr_fused_mlp3_{which}", _FWD3 if which == "fwd" else _BWD3)):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, _CI
-        for what in ("din", "hidden", "dout") + (("parts",) if which == "bwd" else ()):
-            f = getattr(lib, f"xr_fused_mlp_{which}_max_{what}")
-            f.argtypes, f.restype = [], _CI
+        extra = [f"xr_fused_mlp_{which}_max_{what}" for what in ("din", "hidden", "dout")]
+        if which == "bwd":
+            extra += ["xr_fused_mlp_bwd_max_parts", "xr_fused_mlp2_bwd_smem_bytes", "xr_fused_mlp3_bwd_smem_bytes"]
+        for name in extra:
+            getattr(lib, name).argtypes, getattr(lib, name).restype = [], _CI
         lib.xr_cuda_error_string.argtypes = [_CI]
         lib.xr_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[which] = lib
@@ -217,6 +219,9 @@ def _launch_bwd(name: str, x: torch.Tensor, layers, g: torch.Tensor) -> Tuple[to
     bias ``None``): dx and the flat gradient buffer cut into (dw, db) views."""
     lib = _kernel_lib("bwd")
     _check_kernel_args(name, lib, "bwd", x, layers, g)
+    for tname, t in (("x", x), ("g", g)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the CUDA kernel copies {tname} in 16-byte blocks; {tname} is not 16-byte aligned")
     n = x.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     sizes = [s for w, _ in layers for s in (w.numel(), w.shape[1])]
