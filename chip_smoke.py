@@ -9,8 +9,9 @@ Phases, each printed as one JSON line:
 2. build   - the CUDA kernels ``xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu``,
              ``fused_nerf_mlp_bwd.cu``, ``fused_mlp_fwd.cu``,
              ``fused_mlp_bwd.cu`` and ``scatter_rows.cu``, one nvcc each,
-             started together; ptxas registers and spills; for the two
-             vanilla-NeRF kernels each kernel's dynamic shared memory.
+             started together; ptxas registers and spills; the dynamic
+             shared memory of each ``wgmma`` kernel (the two vanilla-NeRF
+             kernels, the colour net's forward, the tiny-MLP backwards).
 3. kernel  - ``fused_nerf_mlp_fwd`` against its plain version on the card
              at width 256 with seeded weights, for N = 1000 (ragged tile),
              1,048,576 (one coarse chunk) and 3,145,728 (one fine chunk),
@@ -50,11 +51,15 @@ Phases, each printed as one JSON line:
              0.93-1.07.
 8. kernel (tiny MLPs) - ``fused_mlp2_fwd`` (32-64-16) and ``fused_mlp3_fwd``
              (31-64-64-3) against their plain versions at N = 1000, 65,536
-             (one grid refresh) and 262,144 (one render chunk), rtol 2e-2 /
-             atol 8e-3; kernel, plain-version and bf16 ``F.linear``-chain
-             times by CUDA events over a run of calls that walk four input
-             buffers (so each finds the L2 cold), queued behind a spin
-             kernel so that the host's launch rate does not enter.
+             (one grid refresh) and 262,144 (one render chunk), the colour
+             net also at 127, 128, 129 (a ragged, a full and a one-over
+             tile) and 262,144 + 37 (a ragged last tile after many
+             grid-stride turns), rtol 2e-2 / atol 8e-3, the same bits on a
+             second launch; kernel, plain-version and bf16
+             ``F.linear``-chain times by CUDA events over a run of calls that
+             walk four input buffers (so each finds the L2 cold), queued
+             behind a spin kernel so that the host's launch rate does not
+             enter.
 9. ngp_grid - Instant-NGP from ``configs/instant_ngp/ngp_blender.py`` at
              full width (16x2 levels, table 2^19, grid 128^3, 512
              candidates, keep 64, budget 2^18) with ``fused=True``: the
@@ -150,6 +155,8 @@ FWD_ROWS = (1000, 1_048_576, 3_145_728)  # ragged; one coarse and one fine eval 
 BWD_ROWS = (1000, 262_144, 786_432)  # ragged; one coarse and one fine train launch
 TRAIN_STEPS, TRAIN_LOG, N_RAND = 40, 10, 4096  # N_RAND: bench.py's flagship batch
 TINY_ROWS = (1000, 65_536, 262_144)  # ragged; one grid refresh; one render chunk
+# the colour net's forward also at a ragged, a full and a one-over tile and a ragged last tile after many turns
+TINY_FWD_ROWS = {"fused_mlp2_fwd": TINY_ROWS, "fused_mlp3_fwd": (127, 128, 129) + TINY_ROWS + (262_144 + 37,)}
 TINY_BWD_ROWS = (127, 128, 129) + TINY_ROWS  # and ragged tiles, warpgroup halves
 TINY_SHAPES = {"fused_mlp2_fwd": (32, 64, 16), "fused_mlp3_fwd": (31, 64, 64, 3)}
 # Seeded NGP field: flax's init, then the table and the density column of
@@ -589,9 +596,9 @@ def train_grads_phase(model_cfg, net_sd):
             "ratio_range": [min(r["ratio"] for r in per_leaf.values()), max(r["ratio"] for r in per_leaf.values())]}
 
 
-def tiny_mlp_phase(dev, gen):
-    """The two tiny-MLP forward kernels against their plain versions;
-    returns their rows by kernel name and N."""
+def tiny_mlp_phase(dev, gen, row_counts=TINY_FWD_ROWS):
+    """The tiny-MLP forward kernels named in ``row_counts`` against their
+    plain versions at its row counts; returns their rows by kernel name and N."""
     import torch.nn.functional as F
 
     from xrnerf_torch.ops import fused_mlp as fm
@@ -605,6 +612,8 @@ def tiny_mlp_phase(dev, gen):
         for i, o in zip(shape[:-1], shape[1:]):
             params += [torch.from_numpy((rng.standard_normal((i, o)) / math.sqrt(i)).astype("float32")).to(dev),
                        torch.from_numpy((0.1 * rng.standard_normal(o)).astype("float32")).to(dev)]
+        if name not in row_counts:
+            continue
         lib = [(w.t().to(torch.bfloat16).contiguous(), b.to(torch.bfloat16)) for w, b in zip(params[::2], params[1::2])]
 
         def library(x, *_):  # the yardstick: a bf16 F.linear (cuBLAS) chain, never called by the port
@@ -617,7 +626,7 @@ def tiny_mlp_phase(dev, gen):
 
         rows[name] = {}
         with torch.no_grad():
-            for n in TINY_ROWS:
+            for n in row_counts[name]:
                 # as the main path gives them: bf16-valued f32 inputs; four buffers, walked in
                 # turn, exceed the 50 MB L2 at the render shape
                 xs = [(torch.rand((n, shape[0]), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16).float()
@@ -633,6 +642,8 @@ def tiny_mlp_phase(dev, gen):
                 got, want = fn(xs[0], *params), plain(xs[0], *params)
                 torch.cuda.synchronize()
                 err = check_close(f"{name} N={n}", got, want)
+                if not torch.equal(fn(xs[0], *params), got):
+                    raise AssertionError(f"{name} N={n}: a second launch gave other bits")
                 lib_err = float((library(xs[0]) - want).abs().max())
                 # microsecond kernels: give the host a head start (see time_ms)
                 ms = time_ms(walk(fn), inner=20, head_start_ms=4.0)
@@ -642,7 +653,7 @@ def tiny_mlp_phase(dev, gen):
                 nbytes = 4 * (n * (shape[0] + shape[-1]) + sum(p.numel() for p in params))
                 bound_ms = max(flop / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S) * 1e3
                 row = {"phase": "kernel", "name": name, "shape": list(shape), "rows": n, "max_abs_err": err,
-                       "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs_err": lib_err,
+                       "deterministic": True, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs_err": lib_err,
                        "bound_ms": bound_ms, "bytes": nbytes, "flop": flop,
                        "bound_by": "operations" if flop / H100_BF16_FLOPS >= nbytes / H100_HBM_BYTES_S else "bytes",
                        "gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms}
@@ -821,7 +832,7 @@ def ngp_phases(work_dir):
     # profiled frame and host syncs of one chunk (after the main path's counts were read);
     # "gather" is every index_select / gather kernel: per chunk the 16 hash gathers, the
     # march's three and the compaction's four
-    groups = {"tiny_mlp": ["tiny_mlp_fwd_kernel"], "gather": ["scatter_gather", "indexSelect", "vectorized_gather"],
+    groups = {"tiny_mlp": ["tiny_mlp_fwd_kernel", "tiny_mlp3_fwd_kernel"], "gather": ["scatter_gather", "indexSelect", "vectorized_gather"],
               "sort": ["sort", "Sort", "radix", "Radix"]}
     emit(profile_device(lambda: tr.render_image(rays, H, W), ms_frame, "ngp_profile", groups, top=12))
     mid = (n_chunks // 2) * chunk
@@ -1040,7 +1051,7 @@ class NGPSphereScene(OrbitCameras):
 
 # kernel groups of an NGP training step's profile
 NGP_STEP_GROUPS = {
-    "tiny_mlp_fwd": ["tiny_mlp_fwd_kernel"], "tiny_mlp_bwd": ["tiny_mlp_bwd_kernel", "reduce_partials_kernel"],
+    "tiny_mlp_fwd": ["tiny_mlp_fwd_kernel", "tiny_mlp3_fwd_kernel"], "tiny_mlp_bwd": ["tiny_mlp_bwd_kernel", "reduce_partials_kernel"],
     "scatter": ["scatter_rows_"], "gather": ["scatter_gather", "indexSelect", "vectorized_gather"],
     "sort": ["sort", "Sort", "radix", "Radix"], "index_add": ["indexAdd", "index_add", "indexFuncLarge", "indexFuncSmall"],
     "elementwise_long": lambda k: "elementwise" in k and any(t in k for t in ("<long", "long,", "long>")),
@@ -1348,11 +1359,12 @@ def main() -> int:
     from xrnerf_torch.ops import scatter_rows as scatter_ops
 
     fwd_lib, bwd_lib = (nerf_ops._kernel_lib(name) for name in names[:2])
-    tiny_bwd_lib = tiny_ops._kernel_lib("bwd")
+    tiny_fwd_lib, tiny_bwd_lib = tiny_ops._kernel_lib("fwd"), tiny_ops._kernel_lib("bwd")
     emit({"phase": "build", "kernels": names, "seconds": time.perf_counter() - t0, "ptxas": ptxas,
           "dynamic_smem_bytes": {"fused_nerf_mlp_fwd_kernel": fwd_lib.xr_fused_nerf_mlp_fwd_smem_bytes(),
                                  "fused_nerf_mlp_bwd_rows": bwd_lib.xr_fused_nerf_mlp_bwd_rows_smem_bytes(),
                                  "fused_nerf_mlp_bwd_wgrad": bwd_lib.xr_fused_nerf_mlp_bwd_wgrad_smem_bytes()},
+          "tiny_mlp_fwd_smem_bytes": {"fused_mlp3_fwd": tiny_fwd_lib.xr_fused_mlp3_fwd_smem_bytes()},
           "tiny_mlp_bwd_smem_bytes": {"fused_mlp2_bwd": tiny_bwd_lib.xr_fused_mlp2_bwd_smem_bytes(),
                                       "fused_mlp3_bwd": tiny_bwd_lib.xr_fused_mlp3_bwd_smem_bytes()},
           "scatter_vector_reductions": bool(scatter_ops._kernel_lib().xr_scatter_add_rows_vectorised())})

@@ -64,7 +64,7 @@ def _jax_fn(shape):
     return jmlp.fused_mlp2 if len(shape) == 3 else jmlp.fused_mlp3
 
 
-@pytest.mark.parametrize("n", [1, 64, 512, 549])
+@pytest.mark.parametrize("n", [1, 64, 127, 128, 129, 512, 549])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_forward_matches_pallas(shape, n):
     import jax.numpy as jnp
@@ -211,15 +211,19 @@ def _cuda_args(shape, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_cuda_kernel_matches_plain_version(shape):
+    """One row, a ragged, a full and a one-over 128-row tile, a ragged tile
+    inside a warpgroup's 64 rows, and ragged last tiles after many
+    grid-stride turns; two launches give the same bits."""
     wrapper, plain = _fns(shape)
-    for n in (1, 127, 1000, 70001):
+    for n in (1, 127, 128, 129, 522, 1000, 70001, 262_144 + 37):
         args = _cuda_args(shape, n)
         before = wrapper.launches
         with torch.no_grad():
             got = wrapper(*args)
-        torch.cuda.synchronize()
-        assert wrapper.launches == before + 1
-        torch.testing.assert_close(got, plain(*args), rtol=RTOL, atol=ATOL)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            torch.testing.assert_close(got, plain(*args), rtol=RTOL, atol=ATOL)
+            assert torch.equal(wrapper(*args), got), f"N={n}: other bits on a second launch"
 
 
 def _leaf_report(got, want):
@@ -296,3 +300,15 @@ def test_cuda_bwd_refuses_misaligned_inputs(shape):
     gm = torch.zeros(256 * shape[-1] + 1).cuda()[1:].view(256, shape[-1])
     with pytest.raises(ValueError, match="16-byte aligned"):
         wrapper(*args, gm)
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_refuses_misaligned_inputs():
+    """The colour net's forward copies x in 16-byte blocks: a view 4 bytes
+    off a 16-byte boundary is refused, not copied."""
+    shape = SHAPES[2]
+    args = _cuda_args(shape, 256)
+    x = torch.zeros(256 * shape[0] + 1).cuda()[1:].view(256, shape[0])
+    x.copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte aligned"), torch.no_grad():
+        fused_mlp3(x, *args[1:])

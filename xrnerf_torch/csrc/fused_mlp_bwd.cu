@@ -64,28 +64,24 @@
 // 16-byte aligned (the wrapper checks): a full tile of x or g, and 64 rows
 // of dx, are then whole multiples of 16 bytes at 16-byte aligned addresses.
 
-#include "sm90.cuh"
-#include "wgmma_sm90.cuh"
+#include "tiny_mlp_sm90.cuh"
 
 namespace {
 namespace tinyb {
 
-constexpr int KIN = 32;     // padded input width (din <= 32)
-constexpr int HID = 64;     // padded hidden width (hidden <= 64)
+using namespace tinyw;  // widths, thread layout, product, load_a, sm_count
+
 constexpr int GP = 16;      // padded width of g (dout <= 16): one mma k-step
-constexpr int ROWS = 128;   // rows per tile
-constexpr int WG_ROWS = 64; // rows of one consumer warpgroup
-constexpr int CONSUMERS = 256;
-constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
 constexpr int STAGES = 2;
-constexpr int WTILE = HID * 128;  // one [64][64] bf16 weight tile, 8 KB
-// row strides of the warp-private bf16 blocks of x and g (+8: the 8 rows of
-// an A fragment on distinct banks)
-constexpr int LDI = KIN + 8;
+// row stride of the warp-private bf16 block of g (+8 as for x)
 constexpr int LDO = GP + 8;
 constexpr int FT = WG_ROWS * 2;  // bytes of one feature row of a tile (64 rows bf16)
 
-constexpr int align1k(int b) { return (b + 1023) & ~1023; }
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+}
 
 // Byte offsets of the shared-memory regions (base 1024-aligned).
 template <int NHID>
@@ -134,32 +130,6 @@ __device__ __forceinline__ void stage_w(const float* __restrict__ w, int nv, int
 
 __device__ __forceinline__ void stage_bias(const float* __restrict__ b, int nout, float* dst) {
   for (int i = threadIdx.x; i < HID; i += THREADS) dst[i] = i < nout ? __ldg(b + i) : 0.f;
-}
-
-template <int N>
-__device__ __forceinline__ void zero_acc(float (&acc)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = 0.f;
-}
-
-// acc = A @ B^T for the warpgroup's 64 rows: A in registers (KS k16
-// fragments, one per warp), B a K-major weight tile (descriptor wd); one
-// wgmma group, waited for (which also retires the previous tile's weight
-// gradients).
-template <int KS, int N>
-__device__ __forceinline__ void product(float (&acc)[N], uint32_t (&a)[KS][4], uint64_t wd) {
-  pin(a);
-  wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    if constexpr (N == 32)
-      wgmma_rs_n64<0>(acc, a[ks], wd + ks * KSTEP_KMAJOR, ks > 0);
-    else
-      wgmma_rs_n32<0>(acc, a[ks], wd + ks * KSTEP_KMAJOR, ks > 0);
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-  pin(acc);
 }
 
 __device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
@@ -237,32 +207,26 @@ __device__ __forceinline__ void mask_pack(const float (&acc)[HID / 2], uint32_t 
 // d), lane l reading column l % C of each row it visits (so the reads are
 // contiguous), rounded to bf16 into the warp-private row-major block w
 // (stride LD, columns >= d zero). Returns the sum of the f32 values the lane
-// read.
+// read. Every load is issued before the first store: both blocks are in
+// shared memory, so the compiler may not move a load past a store itself,
+// and interleaved they cost a load latency per row.
 template <int C, int LD>
 __device__ __forceinline__ float stage_rows(const float* blk, int d, bf16* w, int lane) {
+  constexpr int TURNS = 16 * C / 32;
+  float v[TURNS];
+#pragma unroll
+  for (int j = 0; j < TURNS; ++j) {
+    const int i = lane + 32 * j, r = i / C, c = i % C;
+    v[j] = c < d ? blk[r * d + c] : 0.f;
+  }
   float sum = 0.f;
 #pragma unroll
-  for (int i = lane; i < 16 * C; i += 32) {
-    const int r = i / C, c = i % C;
-    const float v = c < d ? blk[r * d + c] : 0.f;
-    sum += v;
-    w[r * LD + c] = __float2bfloat16_rn(v);
+  for (int j = 0; j < TURNS; ++j) {
+    const int i = lane + 32 * j, r = i / C, c = i % C;
+    sum += v[j];
+    w[r * LD + c] = __float2bfloat16_rn(v[j]);
   }
   return sum;
-}
-
-// A fragments (KS k-steps) of a warp-private row-major [16][LD] bf16 block.
-template <int KS, int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[KS][4], const bf16* blk, int lane) {
-  const int g = lane >> 2, tg = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const bf16* ap = blk + g * LD + ks * 16 + tg * 2;
-    a[ks][0] = *reinterpret_cast<const uint32_t*>(ap);
-    a[ks][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * LD);
-    a[ks][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-    a[ks][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * LD + 8);
-  }
 }
 
 // Per-thread column sums (rows g and g + 8 of every tile this warp saw) to
@@ -329,10 +293,6 @@ __device__ __forceinline__ void wgmma_out(float (&d)[NOUT / 2], uint64_t da, uin
     wgmma_ss_n16<0, 0>(d, da, db, 1);
   else
     wgmma_ss_n8<0, 0>(d, da, db, 1);
-}
-
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 3, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
 
 // NHID hidden layers (1 or 2), g padded to NOUT (8 or 16) columns for the
@@ -592,13 +552,6 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, int npart
   float s = 0.f;
   for (int c = 0; c < nparts; ++c) s += part[(size_t)c * size + e];
   out[e] = s;
-}
-
-cudaError_t sm_count(int* sms) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
 template <int NHID, int NOUT>

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) PTX pieces shared by the kernels that stream tiles with
 // cp.async.bulk and mbarriers and multiply with wgmma: fused_nerf_mlp_fwd.cu
-// and fused_nerf_mlp_bwd.cu (through fused_nerf_mlp_common.cuh) and
-// fused_mlp_bwd.cu. Each source is its own translation unit, so everything
+// and fused_nerf_mlp_bwd.cu (through fused_nerf_mlp_common.cuh), and the
+// colour-net forward of fused_mlp_fwd.cu and fused_mlp_bwd.cu (through
+// tiny_mlp_sm90.cuh). Each source is its own translation unit, so everything
 // here lives in an anonymous namespace.
 
 #pragma once

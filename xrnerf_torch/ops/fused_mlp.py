@@ -6,7 +6,12 @@ Port of ``xrnerf_tpu/ops/pallas/fused_mlp.py`` (``_fwd2_kernel``,
 hand-written CUDA ``xrnerf_torch/csrc/fused_mlp_fwd.cu`` and
 ``fused_mlp_bwd.cu``; their source notes give the designs. Arguments are
 the JAX functions': f32 ``x`` [N, d_in], f32 weights stored [in, out] and
-f32 biases. Numerics are the TPU bodies': x and weights rounded to bf16,
+f32 biases. The colour net's forward and both backwards copy ``x`` (and
+``g``) in 16-byte blocks, so on the card those must start on a 16-byte
+boundary: a misaligned view raises ``ValueError`` (it is never copied, and
+nothing falls back to another kernel or the plain version). A fresh tensor,
+or a contiguous view at offset 0 such as the NGP field's ``reshape``, is
+aligned. Numerics are the TPU bodies': x and weights rounded to bf16,
 f32 accumulation, f32 biases, each hidden activation rounded to bf16 after
 its ReLU, f32 output; the backward recomputes the pre-activations, rounds
 the upstream gradient and each dpre to bf16 before its products, takes the
@@ -95,24 +100,30 @@ _BWD2 = [_VP, _CI, _CLL, _VP, _VP, _CI, _VP, _CI, _VP, _VP, _VP, _VP, _CI, _VP]
 _BWD3 = [_VP, _CI, _CLL, _VP, _VP, _CI, _VP, _VP, _CI, _VP, _CI, _VP, _VP, _VP, _VP, _CI, _VP]
 
 
+def bind_library(lib: ctypes.CDLL, which: str) -> ctypes.CDLL:
+    """Declare the C signatures of a built ``csrc/fused_mlp_<which>.cu``."""
+    for name, argtypes in ((f"xr_fused_mlp2_{which}", _FWD2 if which == "fwd" else _BWD2),
+                           (f"xr_fused_mlp3_{which}", _FWD3 if which == "fwd" else _BWD3)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _CI
+    extra = [f"xr_fused_mlp_{which}_max_{what}" for what in ("din", "hidden", "dout")]
+    if which == "fwd":
+        extra += ["xr_fused_mlp3_fwd_smem_bytes"]
+    else:
+        extra += ["xr_fused_mlp_bwd_max_parts", "xr_fused_mlp2_bwd_smem_bytes", "xr_fused_mlp3_bwd_smem_bytes"]
+    for name in extra:
+        getattr(lib, name).argtypes, getattr(lib, name).restype = [], _CI
+    lib.xr_cuda_error_string.argtypes = [_CI]
+    lib.xr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _kernel_lib(which: str = "fwd") -> ctypes.CDLL:
     """Build (first call) and bind ``csrc/fused_mlp_<which>.cu``."""
     if which not in _LIBS:
         from .build import load_library
 
-        lib = load_library(f"fused_mlp_{which}")
-        for name, argtypes in ((f"xr_fused_mlp2_{which}", _FWD2 if which == "fwd" else _BWD2),
-                               (f"xr_fused_mlp3_{which}", _FWD3 if which == "fwd" else _BWD3)):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, _CI
-        extra = [f"xr_fused_mlp_{which}_max_{what}" for what in ("din", "hidden", "dout")]
-        if which == "bwd":
-            extra += ["xr_fused_mlp_bwd_max_parts", "xr_fused_mlp2_bwd_smem_bytes", "xr_fused_mlp3_bwd_smem_bytes"]
-        for name in extra:
-            getattr(lib, name).argtypes, getattr(lib, name).restype = [], _CI
-        lib.xr_cuda_error_string.argtypes = [_CI]
-        lib.xr_cuda_error_string.restype = ctypes.c_char_p
-        _LIBS[which] = lib
+        _LIBS[which] = bind_library(load_library(f"fused_mlp_{which}"), which)
     return _LIBS[which]
 
 
@@ -152,6 +163,13 @@ def _check_kernel_args(name: str, lib, which: str, x: torch.Tensor, layers, g=No
             f"{name}: the CUDA kernel takes d_in <= {din}, hidden <= {hidden} and d_out <= {dout}; "
             f"got d_in {x.shape[1]} and layer widths {widths}"
         )
+
+
+def _check_aligned(name: str, **tensors: torch.Tensor) -> None:
+    """The wgmma kernels copy x (and g) in 16-byte blocks: refuse, never copy, a misaligned view."""
+    for tname, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the CUDA kernel copies {tname} in 16-byte blocks; {tname} is not 16-byte aligned")
 
 
 def _launch(name: str, fn, lib, x: torch.Tensor, layers) -> torch.Tensor:
@@ -205,6 +223,7 @@ def _fused_mlp3_cuda(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     layers = [(w1, b1), (w2, b2), (w3, b3)]
     lib = _kernel_lib()
     _check_kernel_args("fused_mlp3", lib, "fwd", x, layers)
+    _check_aligned("fused_mlp3", x=x)  # out is a fresh allocation
     out = _launch("fused_mlp3", lib.xr_fused_mlp3_fwd, lib, x, layers)
     if x.shape[0]:
         fused_mlp3.launches += 1
@@ -219,9 +238,7 @@ def _launch_bwd(name: str, x: torch.Tensor, layers, g: torch.Tensor) -> Tuple[to
     bias ``None``): dx and the flat gradient buffer cut into (dw, db) views."""
     lib = _kernel_lib("bwd")
     _check_kernel_args(name, lib, "bwd", x, layers, g)
-    for tname, t in (("x", x), ("g", g)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: the CUDA kernel copies {tname} in 16-byte blocks; {tname} is not 16-byte aligned")
+    _check_aligned(name, x=x, g=g)
     n = x.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     sizes = [s for w, _ in layers for s in (w.numel(), w.shape[1])]
