@@ -120,7 +120,35 @@ Phases, each printed as one JSON line:
              syncs in a step (must be 0).
 16. ngp_brick_train - ``hash_layout="brick"``, one lattice, full width: 16
              steps, one scatter per step and lattice, finite and falling loss.
-17. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+17. mip_train - Mip-NeRF from ``configs/mipnerf/mipnerf_multiscale.py`` at
+             full width (2 levels x 128 samples, IPE degrees 0-16, one shared
+             8x256 f32 MLP: the JAX network runs it unfused, so this path
+             launches none of the hand-written kernels) under the config's
+             optimizer as written (Adam 5e-4 log-lerped to 5e-6, warmup 2500
+             with delay 0.01, ``grad_clip`` 1e-3): ``Trainer.run`` for 40
+             steps at ``N_rand`` 4096 on ``MipSphereScene`` (the lego camera
+             and analytic sphere at 800, 400, 200 and 100 px, rays drawn
+             across scales in proportion to their pixel counts, each with its
+             ``radii`` and ``lossmult = 4^s``, a scale-s target the mean of its
+             2^s x 2^s full-resolution sub-pixels), windows of 10, a
+             checkpoint, ``resume_from`` to step 42: finite losses, the
+             parameters move in every window, 0 launches of the seven
+             kernels; ms/step, rays/s, MLP TFLOP/s (1,220,608 flop per row
+             forward, 3x per step), the lr of each window.
+18. mip_train_grads - 256 rays on the deterministic path (no generator):
+             the card's gradients against the CPU's, same weights, per leaf
+             cosine > 0.97 and norm ratio 0.93-1.07.
+19. mip_train_profile - one step under torch.profiler (device busy, idle
+             share, top ops by group) and the host syncs in a step (must
+             be 0).
+20. mip_slice - the trained weights go through a ``.pt`` into a second
+             Trainer (``load_from``), which renders at ``eval_chunk`` 16384 one
+             800x800 view (scale 0) and one 100x100 view (scale 3), each a
+             warm-up and two timed frames: finite outputs, peak memory, 0
+             kernel launches, and a 32x32 crop of the 800x800 view
+             re-rendered on the CPU must agree at >= 40 dB; then a frame
+             under torch.profiler (``mip_profile``).
+21. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 2.
@@ -171,6 +199,11 @@ NGP_TRAIN_STEPS, NGP_TRAIN_LOG, NGP_AUX_INTERVAL = 64, 16, 16
 NGP_COMPACT_STEPS, NGP_COMPACT_RAND = 8, 16_384  # 4x the sample budget in candidates' kept samples
 NGP_BRICK_STEPS = 16  # two logging windows of 8
 SCATTER_RTOL = 1e-4  # and atol 1e-4 of the largest row sum: f32 atomics add in another order every run
+H100_FP32_FLOPS = 67e12  # FP32 (no tensor cores) peak, H100 SXM data sheet: the Mip-NeRF MLP runs f32, TF32 off
+MIP_MACS_PER_ROW = 96 * 256 + 4 * 256 * 256 + 352 * 256 + 2 * 256 * 256 + 256 * 257 + 283 * 128 + 128 * 3
+MIP_FLOP_PER_ROW = 2 * MIP_MACS_PER_ROW  # 1,220,608: IPE 96 in, view encoding 27
+MIP_STEPS, MIP_LOG = 40, 10
+MIP_SCALES = 4
 
 
 def emit(obj) -> None:
@@ -349,6 +382,23 @@ def check_leaves(what, got, want, min_cos, ratio=GRAD_RATIO):
     return out
 
 
+def distinct_draws(rng, n, population):
+    """``n`` distinct ints below ``population`` in draw order: a few more
+    than ``n`` drawn, repeats dropped (one sort), more drawn if too few are
+    left."""
+    extra = n // 32
+    pix = rng.randint(population, size=n + extra)
+    while True:
+        order = np.argsort(pix)
+        fresh = np.ones(len(pix), bool)
+        fresh[1:] = pix[order[1:]] != pix[order[:-1]]
+        keep = np.sort(order[fresh])
+        if len(keep) >= n:
+            break
+        pix = np.concatenate([pix, rng.randint(population, size=extra)])
+    return pix[keep[:n]]
+
+
 class SphereScene:
     """In-memory training data: rays of the lego camera (800x800, focal
     1111.11) from the 40 orbit poses, ``N_rand`` random pixels per step;
@@ -388,17 +438,7 @@ class SphereScene:
         the 640,000 pixels per step; one sort of the draws)."""
         rng = np.random.RandomState(self.seed + step)
         pose = self.poses[rng.randint(len(self.poses))].astype(np.float32)
-        extra = self.N_rand // 32
-        pix = rng.randint(self.H * self.W, size=self.N_rand + extra)
-        while True:
-            order = np.argsort(pix)
-            fresh = np.ones(len(pix), bool)
-            fresh[1:] = pix[order[1:]] != pix[order[:-1]]
-            keep = np.sort(order[fresh])
-            if len(keep) >= self.N_rand:
-                break
-            pix = np.concatenate([pix, rng.randint(self.H * self.W, size=extra)])
-        pix = pix[keep[: self.N_rand]]
+        pix = distinct_draws(rng, self.N_rand, self.H * self.W)
         col, row = (pix % self.W).astype(np.float32), (pix // self.W).astype(np.float32)
         K = self.K
         dirs = np.stack([(col - K[0, 2]) / K[0, 0], -(row - K[1, 2]) / K[1, 1], -np.ones_like(col)], axis=-1)
@@ -1317,6 +1357,265 @@ def vertex_step_phase(dev, gen, model_cfg, step):
     return row
 
 
+class MipSphereScene:
+    """In-memory training data in ``MipMultiScaleDataset``'s batch format
+    (``rays_o``, ``rays_d``, ``radii``, ``lossmult``, ``near``, ``far``,
+    ``target``): :class:`SphereScene`'s lego camera and analytic sphere on the
+    40 orbit poses at 800, 400, 200 and 100 px. Each step draws ``N_rand``
+    distinct (camera, scale, pixel) entries of the 40 x 850,000 a pool of
+    every camera at every scale holds, so scales come in proportion to their
+    pixel counts, as the pool's permutation gives them. Only the chosen
+    pixels' rays are made: a ray's ``radii`` is ``get_ray_radii`` of its
+    pixel and its row neighbour, ``lossmult`` is 4^s, and a scale-s target is
+    the mean colour of its 2^s x 2^s full-resolution sub-pixels (what
+    ``area_resize`` makes of the full-resolution image)."""
+
+    def __init__(self, n_rand, near=2.0, far=6.0, seed=SEED):
+        from xrnerf_torch.datasets.rays import intrinsics_from_hwf, spherical_render_poses
+
+        self.N_rand, self.near, self.far, self.seed = n_rand, near, far, seed
+        self.H = self.W = 800
+        self.focal = 0.5 * self.W / math.tan(0.5 * 0.6911112070083618)  # lego camera_angle_x
+        self.poses = spherical_render_poses(40, phi=-30.0, radius=4.0).astype(np.float32)
+        self.Ks = [intrinsics_from_hwf(self.H >> s, self.W >> s, self.focal / 2**s) for s in range(MIP_SCALES)]
+        counts = [(self.H >> s) * (self.W >> s) for s in range(MIP_SCALES)]
+        self.offsets = np.cumsum([0] + counts)  # a camera's entries, scale-major
+
+    def _dirs(self, cam, s, row, col):
+        """World ray directions of scale-``s`` pixels (``get_rays_np``'s
+        arithmetic for the given pixels)."""
+        K = self.Ks[s]
+        d = np.stack([(col - K[0, 2]) / K[0, 0], -(row - K[1, 2]) / K[1, 1], -np.ones_like(col)], axis=-1)
+        return np.einsum("nc,nrc->nr", d.astype(np.float32), self.poses[cam, :3, :3]).astype(np.float32)
+
+    def train_batch(self, step, host_id=0, num_hosts=1):
+        from xrnerf_torch.datasets.rays import get_ray_radii
+
+        rng = np.random.RandomState(self.seed + step)
+        n = self.N_rand
+        flat = distinct_draws(rng, n, len(self.poses) * int(self.offsets[-1]))
+        cam, entry = flat // int(self.offsets[-1]), flat % int(self.offsets[-1])
+        scale = np.searchsorted(self.offsets, entry, side="right") - 1
+        o = self.poses[cam, :3, 3].astype(np.float32)
+        d = np.empty((n, 3), np.float32)
+        radii = np.empty((n, 1), np.float32)
+        target = np.empty((n, 3), np.float32)
+        for s in range(MIP_SCALES):
+            sel = np.nonzero(scale == s)[0]
+            if not len(sel):
+                continue
+            w_s = self.W >> s
+            pix = entry[sel] - self.offsets[s]
+            row, col = (pix // w_s).astype(np.float32), (pix % w_s).astype(np.float32)
+            d[sel] = self._dirs(cam[sel], s, row, col)
+            left = np.minimum(col, w_s - 2)
+            pair = np.stack([self._dirs(cam[sel], s, row, left), self._dirs(cam[sel], s, row, left + 1)], 1)
+            radii[sel] = get_ray_radii(pair)[:, 0]
+            f = 2**s  # the full-resolution sub-pixels' rays, traced, averaged
+            sub = np.arange(f, dtype=np.float32)
+            rows = (row[:, None, None] * f + sub[None, :, None]).repeat(f, 2).reshape(-1)
+            cols = (col[:, None, None] * f + sub[None, None, :]).repeat(f, 1).reshape(-1)
+            cams = np.repeat(cam[sel], f * f)
+            colour = SphereScene.colour(self.poses[cams, :3, 3], self._dirs(cams, 0, rows, cols))
+            target[sel] = colour.reshape(len(sel), f * f, 3).mean(1)
+        return {"rays_o": o, "rays_d": d, "radii": radii, "lossmult": (4.0 ** scale)[:, None].astype(np.float32),
+                "near": np.full((n, 1), self.near, np.float32), "far": np.full((n, 1), self.far, np.float32),
+                "target": target}
+
+    def image_rays(self, pose, s):
+        """Full-image rays of ``pose`` at scale ``s`` (``MipMultiScaleDataset``'s
+        eval item without its target)."""
+        from xrnerf_torch.datasets.rays import get_ray_radii, get_rays_np
+
+        H, W = self.H >> s, self.W >> s
+        o, d = get_rays_np(H, W, self.Ks[s], pose)
+        n = H * W
+        return {"rays_o": o.reshape(-1, 3), "rays_d": d.reshape(-1, 3), "radii": get_ray_radii(d).reshape(-1, 1),
+                "near": np.full((n, 1), self.near, np.float32), "far": np.full((n, 1), self.far, np.float32)}, (H, W)
+
+
+class MipWindowLog(WindowLog):
+    """Each logging window's ``last_logs``, the learning rate the window ended
+    on, and the largest parameter change since the window before."""
+
+    def on_run_begin(self, tr):
+        self._last = [p.detach().clone() for p in tr.network.parameters()]
+
+    def after_step(self, tr, step, logs):
+        if step % tr.log_interval == 0:
+            with torch.no_grad():
+                moved = max(float((p - q).abs().max()) for p, q in zip(tr.network.parameters(), self._last))
+                self._last = [p.detach().clone() for p in tr.network.parameters()]
+            self.windows.append(dict(tr.last_logs, step=step, lr=tr.optimizer.param_groups[0]["lr"], moved=moved))
+
+
+# kernel groups of a Mip-NeRF step's and frame's profiles
+MIP_GROUPS = {"gemm": ["gemm", "Gemm", "sm90_xmma", "cutlass", "ampere_", "sm80_"],
+              "adam": ["multi_tensor_apply"], "searchsorted": ["searchsorted"], "scan": ["scan", "Scan", "cumsum"],
+              "cat": ["CatArrayBatchedCopy", "cat_"], "reduce": ["reduce_kernel"]}
+
+
+def mip_phases(work_dir):
+    """Mip-NeRF at full width on the card: training through ``Trainer.run``,
+    card-vs-CPU gradients, a profiled step, then frames at two scales
+    through a Trainer built from a weights file."""
+    from xrnerf_torch import build_network, load_config
+    from xrnerf_torch.core.renderer import render_image
+    from xrnerf_torch.core.trainer import Trainer
+    from xrnerf_torch.utils import checkpoint as ckpt
+    from xrnerf_torch.utils.metrics import psnr
+
+    cfg = load_config(os.path.join(ROOT, "configs", "mipnerf", "mipnerf_multiscale.py"), dataname="lego")
+    model_cfg = dict(cfg["model"])
+    counters = {**ngp_counters(), **nerf_counters()}
+    ds = MipSphereScene(N_RAND)
+
+    # the schedule a run of the config follows: its log-lerp spans the config's max_iters, not these 40 steps
+    optimizer = dict(cfg["optimizer"], max_steps=cfg["max_iters"])
+
+    def trainer(max_iters, hooks, **kw):
+        return Trainer(build_network(model_cfg, device="cuda"), ds, optimizer=optimizer, work_dir=work_dir,
+                       max_iters=max_iters, log_interval=MIP_LOG, ckpt_interval=MIP_STEPS, seed=SEED,
+                       eval_chunk=int(cfg["eval_chunk"]), hooks=hooks, device="cuda", **kw)
+
+    def launched():
+        return {k: f.launches for k, f in counters.items() if f.launches}
+
+    # 17. training
+    torch.cuda.reset_peak_memory_stats()
+    rec = MipWindowLog()
+    tr = trainer(MIP_STEPS, [rec])
+    for f in counters.values():
+        f.launches = 0  # the main path starts here
+    reached = tr.run()
+    torch.cuda.synchronize()
+    if launched():  # and ends here
+        raise AssertionError(f"the Mip-NeRF path launched hand-written kernels: {launched()}")
+    if reached != MIP_STEPS:
+        raise AssertionError(f"Mip-NeRF training stopped at step {reached}")
+    losses = [w["loss"] for w in rec.windows]
+    if len(losses) != MIP_STEPS // MIP_LOG or not all(math.isfinite(v) for w in rec.windows for v in w.values()):
+        raise AssertionError(f"Mip-NeRF windows {rec.windows}")
+    if not all(w["moved"] > 0 for w in rec.windows):
+        raise AssertionError(f"Mip-NeRF parameters did not move in a window: {[w['moved'] for w in rec.windows]}")
+    path = ckpt.latest_path(work_dir)
+    if path is None or not path.endswith(f"ckpt_{MIP_STEPS}.pt"):
+        raise AssertionError(f"no Mip-NeRF checkpoint at step {MIP_STEPS}: {path}")
+    resumed = trainer(MIP_STEPS + 2, [], resume_from=path)
+    if resumed.start_step != MIP_STEPS or resumed.run() != MIP_STEPS + 2:
+        raise AssertionError("Mip-NeRF resume did not continue from the checkpoint to step 42")
+    del resumed
+    ms_step = float(np.median([w["ms_per_step"] for w in rec.windows[1:]]))
+    batch_ms = []
+    for step in range(20):
+        t0 = time.perf_counter()
+        ds.train_batch(step)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    rows = N_RAND * model_cfg["num_levels"] * model_cfg["n_samples"]
+    floor_ms = 3 * MIP_FLOP_PER_ROW * rows / H100_FP32_FLOPS * 1e3  # forward 1x + backward 2x
+    emit({"phase": "mip_train", "config": "configs/mipnerf/mipnerf_multiscale.py", "fused": False, "N_rand": N_RAND,
+          "steps": MIP_STEPS, "resumed_to": MIP_STEPS + 2, "window_losses": losses,
+          "window_psnr": [w["psnr"] for w in rec.windows], "window_lr": [w["lr"] for w in rec.windows],
+          "window_max_param_change": [w["moved"] for w in rec.windows],
+          "window_ms_per_step": [w["ms_per_step"] for w in rec.windows], "ms_per_step": ms_step,
+          "rays_per_s": N_RAND / (ms_step * 1e-3), "mlp_rows_per_step": rows,
+          "mlp_tflops": 3 * MIP_FLOP_PER_ROW * rows / (ms_step * 1e-3) / 1e12, "mlp_floor_ms": floor_ms,
+          "mlp_floor_share": floor_ms / ms_step, "batch_host_ms": float(np.median(batch_ms)),
+          "kernel_launches": 0, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # 18. gradients, card against CPU: the trained weights, the deterministic path
+    sd = {k: v.detach().cpu() for k, v in tr.network.state_dict().items()}
+    batch = MipSphereScene(256, seed=SEED + 1000).train_batch(0)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        net = build_network(model_cfg, device=device)
+        net.load_state_dict(sd)
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        loss, _ = net.loss(net(b, generator=None, train=True), b)
+        loss.backward()
+        grads[device] = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+        grads[device + "_loss"] = loss.item()
+        del net
+    per_leaf = check_leaves("mip_train_grads", grads["cuda"], grads["cpu"], NET_COS)
+    emit({"phase": "mip_train_grads", "rays": 256, "loss_card": grads["cuda_loss"], "loss_cpu": grads["cpu_loss"],
+          "min_cos": min(r["cos"] for r in per_leaf.values()),
+          "ratio_range": [min(r["ratio"] for r in per_leaf.values()), max(r["ratio"] for r in per_leaf.values())]})
+    del grads
+
+    # 19. one step by kernel group, and the host syncs of a step
+    tb = tr._put_batch(ds.train_batch(10_000))
+    prof = profile_device(lambda: tr.train_step(tb, 10_000), ms_step, "mip_train_profile", MIP_GROUPS, top=12)
+    n_syncs, inside = count_host_syncs(lambda: tr.train_step(tb, 10_001))
+    prof.update(cudaStreamSynchronize_per_step=n_syncs, syncs_inside=inside)
+    emit(prof)
+    if n_syncs != 0:
+        raise AssertionError(f"{n_syncs} host syncs in one Mip-NeRF training step: {inside}")
+    del tr, tb
+    torch.cuda.empty_cache()
+
+    # 20. serving: the weights through a file into a second Trainer, frames at scales 0 and 3
+    pt = os.path.join(work_dir, "mip_weights.pt")
+    torch.save(sd, pt)
+    torch.cuda.reset_peak_memory_stats()
+    srv = Trainer(build_network(model_cfg, device="cuda"), ds, work_dir=None, eval_chunk=int(cfg["eval_chunk"]),
+                  seed=SEED + 1, load_from=pt, device="cuda")
+    pose = ds.poses[8]
+    views, frames = {}, {}
+    for f in counters.values():
+        f.launches = 0  # the main path starts here
+    for s in (0, 3):
+        rays, (H, W) = ds.image_rays(pose, s)
+        frame_ms = []
+        for i in range(3):  # one warm-up frame, two timed
+            t0 = time.perf_counter()
+            out = srv.render_image(rays, H, W)
+            torch.cuda.synchronize()
+            if i:
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if sorted(out) != ["acc", "rgb"]:
+            raise AssertionError(f"Mip-NeRF render returned {sorted(out)}")
+        for k, v in out.items():
+            if v.shape[:2] != (H, W) or not np.isfinite(v).all():
+                raise AssertionError(f"mip scale {s} {k}: shape {v.shape} or non-finite values")
+        views[s], frames[s] = (rays, out), frame_ms
+    if launched():  # the main path ends here
+        raise AssertionError(f"Mip-NeRF frames launched hand-written kernels: {launched()}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    (rays, out), H = views[0], ds.H
+    cpu_net = build_network(model_cfg, device="cpu")
+    cpu_net.load_state_dict(torch.load(pt, map_location="cpu", weights_only=True))
+    ys = slice(H // 2 - 16, H // 2 + 16)
+    crop = {k: v.reshape(H, H, -1)[ys, ys].reshape(-1, v.shape[-1]) for k, v in rays.items()}
+    t0 = time.perf_counter()
+    cpu_out = render_image(cpu_net, crop, 32, 32, chunk=int(cfg["eval_chunk"]))
+    cpu_s = time.perf_counter() - t0
+    crop_psnr = float(psnr(out["rgb"][ys, ys], cpu_out["rgb"]))
+    if not crop_psnr >= 40.0:
+        raise AssertionError(f"Mip-NeRF card vs CPU on the 32x32 crop: {crop_psnr} dB < 40 dB")
+    ms_frame = {s: float(np.median(v)) for s, v in frames.items()}
+    samples = model_cfg["num_levels"] * model_cfg["n_samples"]
+    floor_frame_ms = MIP_FLOP_PER_ROW * H * H * samples / H100_FP32_FLOPS * 1e3
+    emit({"phase": "mip_slice", "config": "configs/mipnerf/mipnerf_multiscale.py", "fused": False, "load_from": True,
+          "eval_chunk": int(cfg["eval_chunk"]), "sizes": {s: [H >> s, H >> s] for s in frames},
+          "frame_ms": frames, "ms_per_frame": ms_frame,
+          "rays_per_s": {s: (H >> s) ** 2 / (ms * 1e-3) for s, ms in ms_frame.items()},
+          "mlp_tflops_scale0": MIP_FLOP_PER_ROW * H * H * samples / (ms_frame[0] * 1e-3) / 1e12,
+          "mlp_floor_ms_scale0": floor_frame_ms, "mlp_floor_share_scale0": floor_frame_ms / ms_frame[0],
+          "kernel_launches": 0, "rgb_mean": float(out["rgb"].mean()), "rgb_std": float(out["rgb"].std()),
+          "acc_mean": float(out["acc"].mean()), "crop_psnr_vs_cpu_db": crop_psnr, "cpu_crop_s": cpu_s,
+          "peak_mem_gb": peak_gb})
+    emit(profile_device(lambda: srv.render_image(rays, H, H), ms_frame[0], "mip_profile", MIP_GROUPS, top=12))
+    del srv, views, out
+    torch.cuda.empty_cache()
+
+
+def nerf_counters():
+    """The launch counters of the two vanilla-NeRF kernels."""
+    from xrnerf_torch.ops import fused_nerf_mlp as fm
+
+    return {"fused_nerf_mlp_fwd": fm.fused_nerf_mlp_fwd, "fused_nerf_mlp_bwd": fm.fused_nerf_mlp_bwd}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -1485,7 +1784,14 @@ def main() -> int:
     scatter_rows["vertex_step"] = vertex_step_phase(dev, gen, ngp_model, step_scatter)
     del step_scatter
 
-    # 17. kernels
+    # 17-20. Mip-NeRF at full width: training, gradients, a profiled step, frames
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_mip_")
+    try:
+        mip_phases(work_dir)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+    # 21. kernels
     k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
     keys = ("rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [

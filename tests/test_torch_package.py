@@ -22,6 +22,14 @@ NGP_MODULES = (
     "models.samplers.occupancy", "models.samplers.ngp_march", "models.networks.hashnerf", "datasets.hashnerf",
 )
 
+MIP_MODULES = (
+    "models.embedders.mip", "models.renders.volume", "models.networks.mipnerf", "datasets.multiscale",
+    "datasets.scene", "datasets.load.resize", "datasets.load.blender", "datasets.load.llff", "datasets.load.nsvf",
+    "datasets.load.deepvoxels", "datasets.load.linemod",
+)
+# the JAX package reads and resizes images with these; no module of the port imports them on import
+IMAGE_LIBS = {"cv2", "imageio"}
+
 
 def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
@@ -130,3 +138,47 @@ def test_ngp_entry_points_need_a_card_or_cpu():
         Trainer(net, None, work_dir=None)
     tr = Trainer(net, None, work_dir=None, device="cpu")
     assert tr.network.grid_bitfield.device.type == "cpu" and bool(tr.network.grid_bitfield.all())
+
+
+@pytest.mark.parametrize("module", MIP_MODULES)
+def test_mip_and_loader_module_stands_alone(module):
+    """Each Mip-NeRF and scene-loader module is among the checked sources
+    and imports neither JAX nor the JAX package."""
+    path = os.path.join(PORT, *module.split(".")) + ".py"
+    assert path in _port_sources()
+    test_source_imports_nothing_of_jax(path)
+
+
+def test_mip_and_loader_modules_import_no_image_libs():
+    """Importing them (and building the registry) leaves JAX, the JAX
+    package, ``cv2`` and ``imageio`` out of ``sys.modules``."""
+    mods = [f"xrnerf_torch.{m}" for m in MIP_MODULES]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in ['xrnerf_torch'] + {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN | IMAGE_LIBS)!r})))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_mip_entry_points_need_a_card_or_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; the refusal is for hosts without one")
+    from xrnerf_torch import DATASETS, NETWORKS, build_network
+    from xrnerf_torch.core.trainer import Trainer
+
+    assert "MipNerfNetwork" in NETWORKS and "MipMultiScaleDataset" in DATASETS
+    cfg = dict(type="MipNerfNetwork", n_samples=4, max_deg_point=2, deg_view=1, netdepth=2, netwidth=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_network(cfg)
+    net = build_network(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(net, None, work_dir=None)
+    tr = Trainer(net, None, work_dir=None, device="cpu")
+    assert tr.device.type == "cpu" and next(tr.network.parameters()).device.type == "cpu"

@@ -27,8 +27,8 @@ from .registry import (  # noqa: F401
 
 def _register_all():
     """Import modules for registry side effects."""
-    from .datasets import hashnerf, scene  # noqa: F401
-    from .models.networks import hashnerf as _hashnerf_net, nerf  # noqa: F401
+    from .datasets import hashnerf, multiscale, scene  # noqa: F401
+    from .models.networks import hashnerf as _hashnerf_net, mipnerf, nerf  # noqa: F401
     from .core import hooks  # noqa: F401
 
 

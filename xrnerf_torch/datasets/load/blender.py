@@ -1,7 +1,9 @@
 """Blender (nerf_synthetic) scene loader — a copy of
 ``xrnerf_tpu/datasets/load/blender.py``: ``transforms_{train,val,test}.json``
 + RGBA pngs, optional ``half_res`` and ``testskip``, and a 40-pose spherical
-render path. ``imageio`` and ``cv2`` are imported only when used.
+render path. ``imageio`` is imported only when an image is read;
+``half_res`` downscales with ``load/resize.py:area_resize`` (OpenCV's
+``INTER_AREA`` in numpy), so it needs no ``cv2``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Tuple
 import numpy as np
 
 from ..rays import spherical_render_poses
+from .resize import area_resize
 
 
 def _imread(path: str) -> np.ndarray:
@@ -22,13 +25,8 @@ def _imread(path: str) -> np.ndarray:
 
 
 def _half_res(imgs: np.ndarray) -> np.ndarray:
-    import cv2
-
-    N, H, W, C = imgs.shape
-    out = np.zeros((N, H // 2, W // 2, C), dtype=imgs.dtype)
-    for i, im in enumerate(imgs):
-        out[i] = cv2.resize(im, (W // 2, H // 2), interpolation=cv2.INTER_AREA)
-    return out
+    H, W = imgs.shape[1:3]
+    return np.stack([area_resize(im, H // 2, W // 2) for im in imgs])
 
 
 def load_blender_data(

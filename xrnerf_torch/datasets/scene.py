@@ -1,8 +1,11 @@
 """Scene ray datasets (numpy) — port of ``xrnerf_tpu/datasets/scene.py``.
 
 Rays are precomputed on the host and served as fixed-shape numpy batches;
-the renderer moves them to the model's device. Only ``dataset_type=
-"blender"`` is ported; other layouts raise until their loaders are.
+the renderer moves them to the model's device. Layouts: ``blender``,
+``llff`` (``bds``-derived near/far, or 0/1 in NDC), ``nsvf`` (its own
+intrinsics, near/far and ``bbox``), ``deepvoxels`` (near/far from the mean
+camera radius) and ``LINEMOD`` (per-frame intrinsics, meta near/far). The
+loaders other than blender's are imported when their layout is asked for.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ def apply_white_bkgd(imgs: np.ndarray) -> np.ndarray:
 
 @DATASETS.register
 class SceneDataset:
-    """Blender scene dataset serving ray batches.
+    """Scene dataset serving ray batches.
 
     - train 'batching': pooled pre-shuffled rays over all train images
     - train 'no_batching': one random image per step, N_rand random pixels,
@@ -60,19 +63,49 @@ class SceneDataset:
         self.with_radii = with_radii
         self.seed = seed
 
-        if dataset_type != "blender":
-            raise NotImplementedError(
-                f"dataset_type {dataset_type!r} is not ported yet (only 'blender')"
+        K_override = None
+        self.bbox = None  # (bmin, bmax) global domain when the layout has one
+        if dataset_type == "blender":
+            imgs, poses, render_poses, hwf, i_split = load_blender_data(
+                datadir, half_res=half_res, testskip=testskip
             )
-        imgs, poses, render_poses, hwf, i_split = load_blender_data(
-            datadir, half_res=half_res, testskip=testskip
-        )
-        self.near, self.far = float(near), float(far)
-        self.bbox = None
+            self.near, self.far = float(near), float(far)
+        elif dataset_type == "llff":
+            from .load.llff import load_llff_data
+
+            imgs, poses, bds, render_poses, i_split = load_llff_data(datadir)
+            hwf = [int(poses[0, 0, -1]), int(poses[0, 1, -1]), poses[0, 2, -1]]
+            poses = poses[:, :3, :4]
+            if use_ndc:
+                self.near, self.far = 0.0, 1.0
+            else:
+                self.near = float(np.min(bds)) * 0.9
+                self.far = float(np.max(bds)) * 1.0
+        elif dataset_type == "nsvf":
+            from .load.nsvf import load_nsvf_data
+
+            (imgs, poses, K_override, self.near, self.far, self.bbox, _bg,
+             render_poses, i_split) = load_nsvf_data(datadir, testskip=testskip)
+            hwf = [imgs.shape[1], imgs.shape[2], K_override[0, 0]]
+        elif dataset_type == "deepvoxels":
+            from .load.deepvoxels import load_deepvoxels_data
+
+            imgs, poses, render_poses, hwf, (cx, cy), i_split = load_deepvoxels_data(datadir, testskip=testskip)
+            K_override = np.array([[hwf[2], 0, cx], [0, hwf[2], cy], [0, 0, 1]], np.float32)
+            hemi_r = float(np.mean(np.linalg.norm(poses[:, :3, -1], axis=-1)))
+            self.near, self.far = hemi_r - 1.0, hemi_r + 1.0
+        elif dataset_type == "LINEMOD":
+            from .load.linemod import load_linemod_data
+
+            (imgs, poses, render_poses, hwf, K_override, i_split,
+             self.near, self.far) = load_linemod_data(datadir, half_res=half_res, testskip=testskip)
+            K_override = np.asarray(K_override, np.float32)[:3, :3]
+        else:
+            raise ValueError(f"unknown dataset_type {dataset_type!r}")
 
         self.H, self.W = int(hwf[0]), int(hwf[1])
         self.focal = float(hwf[2])
-        self.K = intrinsics_from_hwf(self.H, self.W, self.focal)
+        self.K = K_override if K_override is not None else intrinsics_from_hwf(self.H, self.W, self.focal)
 
         self.alphas = imgs[..., 3:4].copy() if imgs.shape[-1] == 4 else None
         imgs3 = apply_white_bkgd(imgs) if white_bkgd else imgs[..., :3]

@@ -55,7 +55,9 @@ def ssim(
     k2: float = 0.03,
 ) -> torch.Tensor:
     """Scalar SSIM between two [H, W, C] images in [0, max_val]
-    (separable Gaussian window, 'valid' borders, as the JAX version)."""
+    (separable Gaussian window, 'valid' borders, as the JAX version; an
+    image smaller than the window on both axes becomes the window's filter
+    there, as in ``convolve2d(mode="valid")``)."""
     img0, img1 = _t(img0).float(), _t(img1).float()
     hw = filter_size // 2
     shift = torch.arange(-hw, hw + 1, dtype=torch.float32, device=img0.device)
@@ -65,8 +67,12 @@ def ssim(
     c = img0.shape[-1]
 
     def blur(z):  # [H, W, C] -> [H-k+1, W-k+1, C]; symmetric window, so
-        z = z.permute(2, 0, 1)[None]  # correlation == convolution
-        return F.conv2d(z, win.expand(c, 1, -1, -1), groups=c)[0].permute(1, 2, 0)
+        z = z.permute(2, 0, 1)  # correlation == convolution
+        if z.shape[1] < filter_size and z.shape[2] < filter_size:
+            # an image smaller than the window on both axes: 'valid' swaps the
+            # two (scipy's and jax.scipy's convolve2d), [k-H+1, k-W+1, C]
+            return F.conv2d(win, z.flip(1, 2)[:, None])[0].permute(1, 2, 0)
+        return F.conv2d(z[None], win.expand(c, 1, -1, -1), groups=c)[0].permute(1, 2, 0)
 
     mu0, mu1 = blur(img0), blur(img1)
     mu00, mu11, mu01 = mu0 * mu0, mu1 * mu1, mu0 * mu1
