@@ -148,7 +148,44 @@ Phases, each printed as one JSON line:
              kernel launches, and a 32x32 crop of the 800x800 view
              re-rendered on the CPU must agree at >= 40 dB; then a frame
              under torch.profiler (``mip_profile``).
-21. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+21. kilo_occupancy - KiloNeRF at the full width of
+             ``configs/kilonerf/kilonerf_finetune.py`` and ``kilonerf_distill.py``
+             on ``KiloSphereScene`` (the lego camera, a sphere of radius 0.5
+             inside the domain +-0.7, coloured by its normal over white; its
+             256^3 grid made analytically): the teacher is phase 6's fused
+             network, and ``build_occupancy_grid`` sweeps 256^3 x 3^3 points
+             through it (row 1, at least one launch per plane); one slab of
+             cells against the plain version of row 1, which may differ only
+             within 1 % of the threshold (at the config's threshold and at
+             the slab's median density); one slab by kernel group.
+22. kilo_distill - two cycles of the kd-tree ``DistillDriver`` with the
+             config's ``tree`` dict (the second in a new driver that reads the
+             first's checkpoint): ms per cycle, teacher rows, row 1's launches,
+             per-network error quantiles; a first cycle cut to 10 Adam steps by
+             kernel group; then ``assemble_grid((16, 16, 16))``, and a hand-off
+             cycle (10 Adam steps, ``max_error`` 1e9: every root fits).
+23. kilo_train - ``KiloNerfNetwork`` (pooled march, 4096 networks) seeded
+             from the hand-off cycle's assembled grid (rows checked against
+             their leaves), the config's
+             Adam with ``param_loss``, the analytic grid as aux: 40 steps at
+             ``N_rand`` 1024, a checkpoint and a resume to 42, 0 launches of the
+             seven kernels, the share of points the capacity rule dropped;
+             ``kilo_train_grads`` (card vs CPU, 256 rays, no jitter, cosine >
+             0.999) and ``kilo_train_profile`` (by group, host syncs).
+24. kilo_slice - the weights and grid through a ``.pt`` into a second
+             Trainer: an 800x800 frame at ``eval_chunk`` 8192 (no budget
+             compaction: 262,144 slots), one 32,768-ray chunk (1,048,576 slots:
+             compacted to the budget), the frame culled by
+             ``kilonerf_strip_active`` (strip 8, 64 probes), one chunk through
+             the dense and sphere marches; the crop and the budget chunk against
+             the CPU path on the same chunks, and 32x32 rays over the sphere's
+             disc at a capacity that holds them, without and with the budget
+             compaction, and the same pixels of a frame at such a capacity
+             (>= 40 dB on rgb and acc, the CPU side with content); the culled
+             frame equal to the unculled one where no network is over capacity.
+25. kilo_profile - the frame by kernel group; the culled frame and the budget
+             chunk likewise (``kilo_culled_profile``, ``kilo_budget_chunk_profile``).
+26. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 2.
@@ -1609,6 +1646,520 @@ def mip_phases(work_dir):
     torch.cuda.empty_cache()
 
 
+KILO_STEPS, KILO_LOG = 40, 10
+KILO_RADIUS = 0.5  # inside the finetune config's domain, +-0.7
+KILO_OCC_RES, KILO_OCC_SUB, KILO_OCC_THRESHOLD = 256, 3, 10.0  # the JAX pipeline's sweep
+KILO_COS, KILO_RATIO = 0.999, (0.999, 1.001)  # both sides f32, TF32 off
+KILO_BUDGET_CHUNK = 32_768  # 1,048,576 slots: over the config's eval_budget, so the compaction runs
+# kernel groups of a KiloNeRF step's and frame's profiles (the rest is elementwise)
+KILO_GROUPS = {"bmm": ["gemm", "Gemm", "sm90_xmma", "cutlass", "ampere_", "sm80_", "gemv"],
+               "sort": ["sort", "Sort", "radix", "Radix"],
+               "gather": ["index_elementwise", "indexSelect", "vectorized_gather", "gather_kernel", "scatter_gather",
+                          "index_put", "indexing_backward", "indexFunc", "scatter_kernel", "_scatter_"],
+               "posenc": ["sin_kernel", "cos_kernel"], "scan": ["scan", "Scan", "cumsum"],
+               "adam": ["multi_tensor_apply"], "reduce": ["reduce_kernel"],
+               "cat": ["CatArrayBatchedCopy", "cat_"]}
+
+
+def kilo_profile(run, wall_ms, phase):
+    """``profile_device`` by KiloNeRF's kernel groups; ``elementwise_ms`` is
+    the device time outside every group."""
+    line = profile_device(run, wall_ms, phase, KILO_GROUPS, top=12)
+    line["elementwise_ms"] = line["device_busy_ms"] - sum(line[f"{g}_ms"] for g in KILO_GROUPS)
+    return line
+
+
+class KiloSphereScene(SphereScene):
+    """:class:`SphereScene`'s lego camera on the 40 orbit poses, near 2, far
+    6, only the chosen pixels' rays made; the sphere has radius 0.5, so it
+    lies inside KiloNeRF's domain of +-0.7, coloured by its normal over white."""
+
+    @staticmethod
+    def trace(o, d):
+        a, b = (d * d).sum(-1), 2 * (o * d).sum(-1)
+        disc = b * b - 4 * a * ((o * o).sum(-1) - KILO_RADIUS**2)
+        t = (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a)
+        hit = (disc > 0) & (t > 0)
+        normal = (o + t[:, None] * d) / KILO_RADIUS
+        return np.where(hit[:, None], 0.5 + 0.5 * normal, 1.0).astype(np.float32), hit
+
+    def image_rays(self, pose):
+        from xrnerf_torch.datasets.rays import get_rays_np
+
+        o, d = get_rays_np(self.H, self.W, self.K, pose)
+        n = self.H * self.W
+        return {"rays_o": o.reshape(-1, 3), "rays_d": d.reshape(-1, 3),
+                "near": np.full((n, 1), self.near, np.float32), "far": np.full((n, 1), self.far, np.float32)}
+
+    @staticmethod
+    def occupancy(res, dmin, dmax):
+        """Cells [res^3] of the domain that meet the ball, analytically."""
+        lo = np.asarray(dmin, np.float64)
+        edge = (np.asarray(dmax, np.float64) - lo) / res
+        near2 = []
+        for ax in range(3):  # per axis, the squared distance from 0 to the nearest point of each cell
+            c0 = lo[ax] + edge[ax] * np.arange(res)
+            near2.append(np.clip(0.0, c0, c0 + edge[ax]) ** 2)
+        return (near2[0][:, None, None] + near2[1][None, :, None] + near2[2][None, None, :]) <= KILO_RADIUS**2
+
+
+def occupancy_plane_points(dmin, dmax, res, sub, ix, dev):
+    """World points of fine plane ``ix`` as ``build_occupancy_grid`` makes them."""
+    fine = res * sub
+    xs = (np.arange(fine, dtype=np.float32) + 0.5) / fine
+    lo = np.asarray(dmin, np.float32)
+    span = np.asarray(dmax, np.float32) - lo
+    yy, zz = np.meshgrid(xs, xs, indexing="ij")
+    plane = np.stack([np.full_like(yy, xs[ix]), yy, zz], -1).reshape(-1, 3)
+    return torch.from_numpy(lo + plane * span).to(dev)
+
+
+def kilo_phases(work_dir, teacher_cfg, teacher_sd):
+    """KiloNeRF at the configs' full width on the card: the occupancy sweep and
+    two distillation cycles through the vanilla teacher (row 1), finetune
+    training, card-vs-CPU gradients, then frames (pooled march, the budget
+    compaction, culling, the other two marches). Returns row 1's launches in
+    the occupancy sweep and the distillation."""
+    import torch.nn.functional as F
+
+    from xrnerf_torch import build_network, load_config
+    from xrnerf_torch.core.distill import DistillDriver
+    from xrnerf_torch.core.renderer import render_image, render_rays_chunked
+    from xrnerf_torch.core.trainer import Trainer
+    from xrnerf_torch.models.embedders.posenc import posenc_fast
+    from xrnerf_torch.models.fields.kilonerf_field import assign_networks
+    from xrnerf_torch.models.networks import kilonerf as kn
+    from xrnerf_torch.models.samplers.stratified import sample_along_rays, z_to_pts
+    from xrnerf_torch.ops.fused_nerf_mlp import fused_nerf_mlp_ref
+    from xrnerf_torch.utils import checkpoint as ckpt
+    from xrnerf_torch.utils.metrics import psnr
+
+    fin = load_config(os.path.join(ROOT, "configs", "kilonerf", "kilonerf_finetune.py"), dataname="lego")
+    dis = load_config(os.path.join(ROOT, "configs", "kilonerf", "kilonerf_distill.py"), dataname="lego")
+    occ_path = os.path.join(work_dir, "occupancy.npy")
+    model_cfg = dict(fin["model"], occupancy_path=occ_path)
+    dmin, dmax, res = model_cfg["domain_min"], model_cfg["domain_max"], tuple(model_cfg["resolution"])
+    chunk = int(fin["eval_chunk"])
+    scene = KiloSphereScene(int(fin["data"]["N_rand"]), fin["data"]["near"], fin["data"]["far"])
+    np.save(occ_path, scene.occupancy(KILO_OCC_RES, dmin, dmax))
+    counters = {**ngp_counters(), **nerf_counters()}
+    fwd = counters["fused_nerf_mlp_fwd"]
+    dev = torch.device("cuda", 0)
+
+    def launched():
+        return {k: f.launches for k, f in counters.items() if f.launches}
+
+    teacher = build_network(teacher_cfg, device="cuda")
+    teacher.load_state_dict(teacher_sd)
+    teacher.eval()
+
+    def teacher_fn(pts, dirs):
+        with torch.inference_mode():
+            return teacher.eval_field(pts, dirs)
+
+    def density(pts):
+        dirs = torch.zeros_like(pts)
+        dirs[:, 2] = 1.0
+        return teacher_fn(pts, dirs)[1]
+
+    # kilo_occupancy: the teacher's density over 768^3 points, through row 1
+    t_phase = time.perf_counter()
+    fwd.launches = 0  # the main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    occ_teacher = kn.build_occupancy_grid(density, dmin, dmax, res=(KILO_OCC_RES,) * 3, subsamples=KILO_OCC_SUB,
+                                          threshold=KILO_OCC_THRESHOLD)
+    sweep_s = time.perf_counter() - t0
+    occ_launches = fwd.launches  # and ends here
+    planes = KILO_OCC_RES * KILO_OCC_SUB
+    if occ_launches < planes:
+        raise AssertionError(f"kilo_occupancy: {occ_launches} launches of row 1 for {planes} planes")
+    # the same sweep's cells of one coarse slab through the plain version of row 1, same weights, same encodings
+    mlp = teacher.mlp_fine
+    slab = KILO_OCC_RES // 2
+    dens_k, dens_p = [], []
+    with torch.inference_mode():
+        for ix in range(slab * KILO_OCC_SUB, (slab + 1) * KILO_OCC_SUB):
+            pts = occupancy_plane_points(dmin, dmax, KILO_OCC_RES, KILO_OCC_SUB, ix, dev)
+            dirs = torch.zeros_like(pts)
+            dirs[:, 2] = 1.0
+            dens_k.append(density(pts))
+            x, v = posenc_fast(pts, teacher.multires), posenc_fast(dirs, teacher.multires_dirs)
+            dens_p.append(F.relu(fused_nerf_mlp_ref(x, v, mlp.packed())[1]))
+    shape = (KILO_OCC_SUB, KILO_OCC_RES, KILO_OCC_SUB, KILO_OCC_RES, KILO_OCC_SUB)
+    dk = torch.stack(dens_k).reshape(shape)
+    dp = torch.stack(dens_p).reshape(shape)
+
+    def cells(dens, thr):
+        return (dens > thr).any(4).any(2).any(0)
+
+    if not bool(torch.equal(cells(dk, KILO_OCC_THRESHOLD).cpu(), torch.from_numpy(occ_teacher[slab]))):
+        raise AssertionError("kilo_occupancy: the sweep's slab differs from the same planes evaluated again")
+    # at the config's threshold, and at the slab's median density (so that half its points are over it)
+    plain_check = {}
+    for label, thr in (("config", KILO_OCC_THRESHOLD), ("median", float(dp.median()))):
+        near = ((dp - thr).abs() <= 0.01 * thr).any(4).any(2).any(0)
+        differ = cells(dk, thr) != cells(dp, thr)
+        if bool((differ & ~near).any()):
+            raise AssertionError(f"kilo_occupancy: {int((differ & ~near).sum())} cells differ from the plain "
+                                 f"version away from the threshold {thr}")
+        plain_check[label] = {"threshold": thr, "occupied_cells": int(cells(dp, thr).sum()),
+                              "cells_differ": int(differ.sum()), "cells_near_threshold": int(near.sum())}
+    emit({"phase": "kilo_occupancy", "teacher": "configs/nerf/nerf_blender.py, fused, the train phase's weights",
+          "res": KILO_OCC_RES, "subsamples": KILO_OCC_SUB, "threshold": KILO_OCC_THRESHOLD,
+          "points": planes**3, "sweep_s": sweep_s, "occupied_share": float(occ_teacher.mean()),
+          "fused_nerf_mlp_fwd_launches": occ_launches, "plain_check_slab": slab, "plain_check": plain_check,
+          "slab_density_max_abs_err": float((dk - dp).abs().max()), "slab_density_max": float(dp.max()),
+          "analytic_occupied_share": float(np.load(occ_path).mean()),
+          "note": "the finetune below marches the analytic grid", "seconds": time.perf_counter() - t_phase})
+    del dk, dp, dens_k, dens_p
+    slab_pts = [occupancy_plane_points(dmin, dmax, KILO_OCC_RES, KILO_OCC_SUB, ix, dev)
+                for ix in range(slab * KILO_OCC_SUB, (slab + 1) * KILO_OCC_SUB)]
+    emit(kilo_profile(lambda: [density(p) for p in slab_pts], sweep_s * 1e3 * KILO_OCC_SUB / planes,
+                      "kilo_occupancy_profile"))
+    del slab_pts
+
+    # kilo_distill: two cycles of the kd-tree driver as configured, the second in a new driver after the pickle
+    t_phase = time.perf_counter()
+    dwork = os.path.join(work_dir, "distill")
+    os.makedirs(dwork)
+    tree = dict(dis["tree"])
+    fwd.launches = 0  # the main path starts here
+    cycles = []
+    for c in range(2):
+        driver = DistillDriver(teacher_fn, dmin, dmax, work_dir=dwork, device="cuda", **tree)
+        if c and driver.cp["num_networks_fitted"] != cycles[0]["fitted_total"]:
+            raise AssertionError("kilo_distill: the resumed driver did not read the first cycle's tree")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        driver.run_cycle(log=lambda *a: None)
+        torch.cuda.synchronize()
+        errs = np.asarray(driver.last_cycle["errors"])
+        if not np.isfinite(errs).all():
+            raise AssertionError(f"kilo_distill cycle {c}: non-finite errors")
+        cycles.append({"ms": (time.perf_counter() - t0) * 1e3, "networks": driver.last_cycle["networks"],
+                       "fitted": driver.last_cycle["fitted"], "saturated": driver.last_cycle["saturated"],
+                       "teacher_rows": driver.teacher_rows, "fitted_total": driver.cp["num_networks_fitted"],
+                       "queue": len(driver.cp["nodes_to_process"]),
+                       "saturated_queue": len(driver.cp["saturated_nodes_to_process"]),
+                       "error_quantiles": dict(zip(("p50", "p90", "p99", "max"),
+                                                   np.quantile(errs, [0.5, 0.9, 0.99, 1.0]).tolist()))})
+    distill_launches = fwd.launches  # and ends here (before the profile below)
+    if distill_launches < 4:  # two example draws a cycle, one teacher call each
+        raise AssertionError(f"kilo_distill: {distill_launches} launches of row 1")
+    # a first cycle cut to 10 Adam steps, by kernel group (the teacher's calls, then the fit)
+    short = dict(tree, iters_per_batch=10)
+
+    def short_cycle():
+        DistillDriver(teacher_fn, dmin, dmax, device="cuda", **short).run_cycle(log=lambda *a: None)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    short_cycle()
+    torch.cuda.synchronize()
+    line = kilo_profile(short_cycle, (time.perf_counter() - t0) * 1e3, "kilo_distill_profile")
+    line["cut"] = "the first cycle at 10 Adam steps of 1,500"
+    emit(line)
+    cell = (np.asarray(dmax, np.float32) - np.asarray(dmin, np.float32)) / np.asarray(res)
+    centres = [np.asarray(dmin, np.float32) + cell * (np.array(ijk) + 0.5) for ijk in np.ndindex(*res)]
+
+    def fitted(drv):
+        return np.array([drv.lookup(c).params is not None for c in centres])
+
+    grid, config_fitted = driver.assemble_grid(res), fitted(driver)
+    # the hand-off into the finetune: two cycles of the config fit no node from a 42-step teacher, so the finetune
+    # is seeded from one more cycle cut to 10 Adam steps with max_error 1e9, where every root fits
+    handoff = DistillDriver(teacher_fn, dmin, dmax, device="cuda", **dict(short, max_error=1e9))
+    handoff.run_cycle(log=lambda *a: None)
+    seed_grid, seed_cells = handoff.assemble_grid(res), fitted(handoff)
+    if not seed_cells.all():
+        raise AssertionError(f"kilo_distill: the hand-off cycle left {int((~seed_cells).sum())} cells without a leaf")
+    emit({"phase": "kilo_distill", "config": "configs/kilonerf/kilonerf_distill.py (tree)", "tree": tree,
+          "cycles": cycles, "cut": "2 cycles of the run to termination", "fused_nerf_mlp_fwd_launches":
+          distill_launches, "assembled": {k: list(v.shape) for k, v in grid.items()},
+          "cells_with_fitted_leaf": int(config_fitted.sum()),
+          "handoff": {"cut": "1 cycle at 10 Adam steps, max_error 1e9", "networks": handoff.last_cycle["networks"],
+                      "fitted": handoff.last_cycle["fitted"], "cells_with_fitted_leaf": int(seed_cells.sum())},
+          "seconds": time.perf_counter() - t_phase})
+
+    # kilo_train: the finetune network seeded from the hand-off grid, the config's Adam, the analytic grid
+    t_phase = time.perf_counter()
+    kwork = os.path.join(work_dir, "finetune")
+
+    def trainer(max_iters, hooks, **kw):
+        return Trainer(build_network(model_cfg, device="cuda"), scene, optimizer=fin["optimizer"], work_dir=kwork,
+                       max_iters=max_iters, log_interval=KILO_LOG, ckpt_interval=KILO_STEPS, seed=SEED,
+                       eval_chunk=chunk, hooks=hooks, device="cuda", **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = MipWindowLog()
+    tr = trainer(KILO_STEPS, [rec])
+    with torch.no_grad():
+        rows = torch.from_numpy(np.nonzero(seed_cells)[0]).to(dev)
+        for k, v in seed_grid.items():
+            getattr(tr.network.mlp, k)[rows] = torch.from_numpy(v).to(dev)[rows]
+    # every 97th cell's row in the finetune field is its kd-tree leaf's fitted weights
+    for flat_id in range(0, len(centres), 97):
+        leaf = handoff.lookup(centres[flat_id]).params
+        for k, v in leaf.items():
+            if not np.array_equal(getattr(tr.network.mlp, k)[flat_id].detach().cpu().numpy(), v):
+                raise AssertionError(f"kilo_train: cell {flat_id}'s {k} is not its leaf's fitted weights")
+    for f in counters.values():
+        f.launches = 0  # the main path starts here
+    reached = tr.run()
+    torch.cuda.synchronize()
+    if launched():  # and ends here
+        raise AssertionError(f"the KiloNeRF finetune launched hand-written kernels: {launched()}")
+    losses = [w["loss"] for w in rec.windows]
+    if reached != KILO_STEPS or len(losses) != KILO_STEPS // KILO_LOG or not all(
+            math.isfinite(v) for w in rec.windows for v in w.values()):
+        raise AssertionError(f"kilo_train: step {reached}, windows {rec.windows}")
+    if not all(w["moved"] > 0 for w in rec.windows):
+        raise AssertionError(f"kilo_train: the weights did not move in a window: {[w['moved'] for w in rec.windows]}")
+    path = ckpt.latest_path(kwork)
+    resumed = trainer(KILO_STEPS + 2, [], resume_from=path)
+    if resumed.start_step != KILO_STEPS or resumed.run() != KILO_STEPS + 2:
+        raise AssertionError("kilo_train: resume did not continue from the checkpoint to step 42")
+    if not torch.equal(resumed.network.occupancy, tr.network.occupancy):
+        raise AssertionError("kilo_train: the resumed network's grid differs")
+    del resumed
+    ms_step = float(np.median([w["ms_per_step"] for w in rec.windows[1:]]))
+    batch_ms = []
+    for step in range(20):
+        t0 = time.perf_counter()
+        scene.train_batch(step)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    # the share of live points the capacity rule dropped in one step's batch
+    net = tr.network
+    with torch.no_grad():
+        b = tr._put_batch(scene.train_batch(0))
+        flat = z_to_pts(b["rays_o"], b["rays_d"], sample_along_rays(b["near"], b["far"], net.n_samples,
+                                                                     perturb=False)).reshape(-1, 3)
+        idx, _ = assign_networks(flat, net.domain_lo, net.domain_hi, net.resolution)
+        rel = (flat - net.domain_lo) / (net.domain_hi - net.domain_lo)
+        idx = torch.where(net.occupancy.reshape(-1)[kn._flat_cells(rel, net.occupancy.shape)], idx, -1)
+        load = torch.bincount(idx[idx >= 0].long(), minlength=net.n_nets)
+        cap = net.mlp.capacity(flat.shape[0])
+        dropped = float((load - cap).clamp(min=0).sum() / load.sum().clamp(min=1))
+    emit({"phase": "kilo_train", "config": "configs/kilonerf/kilonerf_finetune.py", "N_rand": scene.N_rand,
+          "points_per_step": flat.shape[0], "capacity": cap, "capacity_dropped_share": dropped,
+          "live_points": int(load.sum()), "max_network_load": int(load.max()),
+          "steps": KILO_STEPS, "resumed_to": KILO_STEPS + 2, "window_losses": losses,
+          "window_psnr": [w["psnr"] for w in rec.windows], "window_param_reg": [w["param_reg"] for w in rec.windows],
+          "window_max_param_change": [w["moved"] for w in rec.windows],
+          "window_ms_per_step": [w["ms_per_step"] for w in rec.windows], "ms_per_step": ms_step,
+          "rays_per_s": scene.N_rand / (ms_step * 1e-3), "batch_host_ms": float(np.median(batch_ms)),
+          "kernel_launches": 0, "seeded_cells": int(seed_cells.sum()),
+          "seeded_from": "the hand-off cycle of kilo_distill",
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "seconds": time.perf_counter() - t_phase})
+
+    # kilo_train_grads: 256 rays without jitter, the card against the CPU, same weights and grid
+    sd = {k: v.detach().cpu() for k, v in tr.network.state_dict().items()}
+    gb = KiloSphereScene(256, scene.near, scene.far, seed=SEED + 1000).train_batch(0)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        gnet = build_network(model_cfg, device=device)
+        gnet.load_state_dict(sd)
+        bb = {k: torch.from_numpy(v).to(device) for k, v in gb.items()}
+        loss = gnet.loss(gnet(bb, generator=None, train=True), bb)[0] + gnet.param_loss()
+        loss.backward()
+        grads[device] = {k: p.grad.detach().cpu() for k, p in gnet.named_parameters()}
+        grads[device + "_loss"] = loss.item()
+        del gnet
+    per_leaf = check_leaves("kilo_train_grads", grads["cuda"], grads["cpu"], KILO_COS, KILO_RATIO)
+    emit({"phase": "kilo_train_grads", "rays": 256, "loss_card": grads["cuda_loss"], "loss_cpu": grads["cpu_loss"],
+          "min_cos": min(r["cos"] for r in per_leaf.values()),
+          "ratio_range": [min(r["ratio"] for r in per_leaf.values()), max(r["ratio"] for r in per_leaf.values())]})
+    del grads
+
+    # kilo_train_profile: one step by kernel group, and the host syncs of a step
+    tb = tr._put_batch(scene.train_batch(10_000))
+    prof = kilo_profile(lambda: tr.train_step(tb, 10_000), ms_step, "kilo_train_profile")
+    n_syncs, inside = count_host_syncs(lambda: tr.train_step(tb, 10_001))
+    prof.update(cudaStreamSynchronize_per_step=n_syncs, syncs_inside=inside)
+    emit(prof)
+    del tr, tb, net
+    torch.cuda.empty_cache()
+
+    # kilo_slice: the weights and grid through a .pt into a second Trainer
+    t_phase = time.perf_counter()
+    pt = os.path.join(work_dir, "kilo_weights.pt")
+    torch.save(sd, pt)
+    torch.cuda.reset_peak_memory_stats()
+    srv = Trainer(build_network(model_cfg, device="cuda"), scene, work_dir=None, eval_chunk=chunk, seed=SEED + 1,
+                  load_from=pt, device="cuda")
+    net = srv.eval_network
+    H = W = scene.H
+    rays = scene.image_rays(scene.poses[8].astype(np.float32))
+    for f in counters.values():
+        f.launches = 0  # the main path starts here
+    frame_ms, out = [], None
+    for i in range(3):  # one warm-up frame, two timed
+        t0 = time.perf_counter()
+        out = srv.render_image(rays, H, W)
+        torch.cuda.synchronize()
+        if i:
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+    for k, v in out.items():
+        if v.shape[:2] != (H, W) or not np.isfinite(v).all():
+            raise AssertionError(f"kilo_slice {k}: shape {v.shape} or non-finite values")
+
+    def chunk_ms(batch, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    # one chunk over the budget: 32,768 rays x 32 kept = 1,048,576 slots > eval_budget
+    mid = (H // 2) * W
+    big = {k: v[mid - KILO_BUDGET_CHUNK // 2: mid + KILO_BUDGET_CHUNK // 2] for k, v in rays.items()}
+    big_dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in big.items()}
+    big_ms = chunk_ms(big_dev)
+    big_out = net(big_dev)
+    with torch.no_grad():
+        big_live = int(net.march_samples(big_dev)[1].sum())
+    # the other marches on one eval chunk, against the pooled one
+    one = {k: v[(KILO_BUDGET_CHUNK - chunk) // 2: (KILO_BUDGET_CHUNK + chunk) // 2] for k, v in big_dev.items()}
+    marches = {}
+    pooled = net(one)
+    with torch.no_grad():
+        pooled_mask = net.march_samples(one)[1]
+    for march in ("dense", "sphere"):
+        net.march = march
+        marches[march] = {"chunk_ms": chunk_ms(one), "psnr_vs_pooled": float(psnr(net(one)["rgb"], pooled["rgb"])),
+                          "mask_equal_share": float((net.march_samples(one)[1] == pooled_mask).float().mean())}
+    net.march = "pooled"
+    marches["pooled"] = {"chunk_ms": chunk_ms(one), "live_samples": int(pooled_mask.sum())}
+    # stage A's cell radius per ray (r > RMAX: every in-bounds group counts as live)
+    dn = np.linalg.norm(rays["rays_d"], axis=-1)
+    half_w = (net.march_group - 1) / 2.0 * (scene.far - scene.near) / (net.n_samples - 1) * dn
+    r_cells = np.floor(half_w / (min(np.subtract(dmax, dmin)) / KILO_OCC_RES)) + 1
+    # the culled frame (strip 8, 64 probes, as bench.py calls it)
+    def active(r):
+        return kn.kilonerf_strip_active(r["rays_o"], r["rays_d"], r["near"], r["far"], net.occ_dist, net.domain_lo,
+                                        net.domain_hi, strip=8, n_probes=64)
+
+    culled_ms, culled = [], None
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        culled = render_rays_chunked(net, rays, chunk=chunk, active_fn=active)
+        torch.cuda.synchronize()
+        culled_ms.append((time.perf_counter() - t0) * 1e3)
+    if launched():  # the main path ends here
+        raise AssertionError(f"KiloNeRF frames launched hand-written kernels: {launched()}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # culling is output-identical where no network is over capacity: the same weights with a capacity that
+    # holds every chunk's largest network load, culled chunks or not, render the two frames alike
+    def max_load(ray_set, order, size):
+        most = 0
+        with torch.no_grad():
+            for start in range(0, len(order), size):
+                cb = {k: torch.from_numpy(np.ascontiguousarray(v[order[start:start + size]])).to(dev)
+                      for k, v in ray_set.items()}
+                z, m, _ = net.march_samples(cb)
+                p3 = cb["rays_o"][:, None] + cb["rays_d"][:, None] * z[..., None]
+                idx, _ = assign_networks(p3.reshape(-1, 3), net.domain_lo, net.domain_hi, net.resolution)
+                idx = torch.where(m.reshape(-1), idx, -1)
+                most = max(most, int(torch.bincount(idx[idx >= 0].long(), minlength=net.n_nets).max()))
+        return most
+
+    with torch.no_grad():
+        act = active({k: torch.from_numpy(v).to(dev) for k, v in rays.items()}).cpu().numpy()
+    load_frame, load_culled = max_load(rays, np.arange(H * W), chunk), max_load(rays, np.nonzero(act)[0], chunk)
+    frame_cap = net.mlp.capacity(chunk * net.n_keep)
+    ample = dict(model_cfg, capacity_factor=(max(load_frame, load_culled) + 1) * net.n_nets / (chunk * net.n_keep))
+    ample_net = build_network(ample, device="cuda")
+    ample_net.load_state_dict(sd)
+    ample_net.eval()
+    base = render_rays_chunked(ample_net, rays, chunk=chunk)
+    ample_culled = render_rays_chunked(ample_net, rays, chunk=chunk, active_fn=active)
+    for k in ("rgb", "acc"):
+        if not np.array_equal(ample_culled[k], base[k]):
+            raise AssertionError(f"kilo_slice: the culled frame's {k} differs from the unculled frame "
+                                 f"(max {np.abs(ample_culled[k] - base[k]).max()})")
+    if not np.allclose(ample_culled["disp"], base["disp"], rtol=1e-5, atol=0):
+        raise AssertionError("kilo_slice: the culled frame's disp differs from the unculled frame")
+    # card against the CPU path, same chunks. Each comparison needs content on the CPU side: with mean(acc^2)
+    # >= 1e-3, a card render of background only reads <= 30 dB on acc and fails the 40 dB bar.
+    cpu_net = build_network(model_cfg, device="cpu")
+    cpu_net.load_state_dict(torch.load(pt, map_location="cpu", weights_only=True))
+
+    def against_cpu(name, card, cpu, min_acc_mean=0.0):
+        card = {k: torch.as_tensor(card[k]).cpu().reshape(-1) for k in ("rgb", "acc")}
+        cpu = {k: torch.as_tensor(cpu[k]).reshape(-1) for k in ("rgb", "acc")}
+        got = {"rgb_psnr_db": float(psnr(card["rgb"], cpu["rgb"])),
+               "acc_psnr_db": float(psnr(card["acc"], cpu["acc"])),
+               "cpu_acc_mean": float(cpu["acc"].mean()), "cpu_acc_sq_mean": float(cpu["acc"].square().mean())}
+        if not (got["rgb_psnr_db"] >= 40.0 and got["acc_psnr_db"] >= 40.0 and got["cpu_acc_sq_mean"] >= 1e-3
+                and got["cpu_acc_mean"] > min_acc_mean):
+            raise AssertionError(f"kilo_slice {name}: card vs CPU {got} (bars: 40 dB on rgb and acc, CPU "
+                                 f"mean(acc^2) >= 1e-3, mean acc > {min_acc_mean})")
+        return got
+
+    # at the config's capacity: the 32x32 centre of the frame, and the budget chunk
+    ys = slice(H // 2 - 16, H // 2 + 16)
+    crop = {k: v.reshape(H, W, -1)[ys, ys].reshape(-1, v.shape[-1]) for k, v in rays.items()}
+    t0 = time.perf_counter()
+    cpu_crop = render_image(cpu_net, crop, 32, 32, chunk=chunk)
+    cpu_s = time.perf_counter() - t0
+    vs_cpu = {"crop": against_cpu("crop", render_image(net, crop, 32, 32, chunk=chunk), cpu_crop)}
+    frame_crop_psnr = float(psnr(out["rgb"][ys, ys], cpu_crop["rgb"]))
+    vs_cpu["budget_chunk"] = against_cpu(
+        "budget chunk", big_out, cpu_net({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in big.items()}))
+    # where the sphere renders whole: 32x32 rays 6 pixels apart over its disc (radius ~140 pixels), in one chunk
+    # at a capacity that holds its largest network load, without and with the budget compaction (half the
+    # slots); and the ample frame's same pixels
+    ss = slice(H // 2 - 96, H // 2 + 96, 6)
+    disc = {k: v.reshape(H, W, -1)[ss, ss].reshape(-1, v.shape[-1]) for k, v in rays.items()}
+    n_disc = 32 * 32
+    load_disc = max_load(disc, np.arange(n_disc), n_disc)
+    for name, budget in (("disc", net.eval_budget), ("disc_budget", n_disc * net.n_keep // 2)):
+        for m in (net, cpu_net):
+            m.eval_budget = budget
+            m.mlp.capacity_factor = (load_disc + 1) * net.n_nets / min(budget, n_disc * net.n_keep)
+        cpu_render = render_rays_chunked(cpu_net, disc, chunk=n_disc)
+        vs_cpu[name] = against_cpu(name, render_rays_chunked(net, disc, chunk=n_disc), cpu_render,
+                                   min_acc_mean=0.1 if name == "disc" else 0.0)
+        if name == "disc":
+            cpu_disc = cpu_render
+    vs_cpu["ample_frame_disc"] = against_cpu(
+        "ample frame", {k: v.reshape(H, W, -1)[ss, ss] for k, v in base.items()}, cpu_disc, min_acc_mean=0.1)
+    for m in (net, cpu_net):
+        m.eval_budget, m.mlp.capacity_factor = model_cfg["eval_budget"], model_cfg["capacity_factor"]
+    vs_cpu["disc"]["max_network_load"] = load_disc
+    del ample_net, cpu_net
+    torch.cuda.empty_cache()
+    ms_frame = float(np.median(frame_ms))
+    emit({"phase": "kilo_slice", "config": "configs/kilonerf/kilonerf_finetune.py", "load_from": True,
+          "march": net.march, "eval_chunk": chunk, "eval_budget": net.eval_budget,
+          "slots_per_chunk": chunk * net.n_keep, "frame_ms": frame_ms, "ms_per_frame": ms_frame,
+          "rays_per_s": H * W / (ms_frame * 1e-3), "kernel_launches": 0, "rgb_mean": float(out["rgb"].mean()),
+          "acc_mean": float(out["acc"].mean()), "vs_cpu": vs_cpu,
+          "frame_crop_psnr_vs_cpu_crop_db": frame_crop_psnr, "cpu_crop_s": cpu_s,
+          "budget_chunk": {"rays": KILO_BUDGET_CHUNK, "slots": KILO_BUDGET_CHUNK * net.n_keep,
+                           "live_samples": big_live, "ms": big_ms},
+          "pooled_r_range": [float(r_cells.min()), float(r_cells.max())], "rmax": kn.RMAX,
+          "marches_one_chunk": marches, "culled": {"ms": culled_ms, "culled_share": 1.0 - float(act.mean()),
+                                                   "psnr_vs_unculled_db": float(psnr(culled["rgb"],
+                                                                                     out["rgb"].reshape(-1, 3)))},
+          "capacity_per_chunk": frame_cap, "max_network_load_per_chunk": load_frame,
+          "max_network_load_per_culled_chunk": load_culled,
+          "culled_equal_at_capacity_factor": ample["capacity_factor"], "peak_mem_gb": peak_gb,
+          "seconds": time.perf_counter() - t_phase})
+    emit(kilo_profile(lambda: srv.render_image(rays, H, W), ms_frame, "kilo_profile"))
+    emit(kilo_profile(lambda: render_rays_chunked(net, rays, chunk=chunk, active_fn=active),
+                      float(np.median(culled_ms)), "kilo_culled_profile"))
+    emit(kilo_profile(lambda: net(big_dev), big_ms, "kilo_budget_chunk_profile"))
+    del srv, net, out
+    torch.cuda.empty_cache()
+    return occ_launches + distill_launches
+
+
 def nerf_counters():
     """The launch counters of the two vanilla-NeRF kernels."""
     from xrnerf_torch.ops import fused_nerf_mlp as fm
@@ -1752,6 +2303,7 @@ def main() -> int:
         emit(line)
         batch = ttr._put_batch(ds.train_batch(10_000))
         emit(profile_device(lambda: ttr.train_step(batch, 10_000), line["ms_per_step"], "train_profile"))
+        teacher_sd = {k: v.detach().cpu() for k, v in ttr.network.state_dict().items()}  # KiloNeRF's teacher
         del ttr, batch
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
@@ -1791,13 +2343,20 @@ def main() -> int:
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
-    # 21. kernels
+    # 21-25. KiloNeRF at full width: occupancy, distillation, finetune training, frames
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_kilo_")
+    try:
+        kilo_launches = kilo_phases(work_dir, model_cfg, teacher_sd)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+    # 26. kernels
     k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
     keys = ("rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": "fused_nerf_mlp_fwd", "route": "cuda", "source": "xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu",
          "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:150",
-         "launches": main_path_launches + train_launches["fused_nerf_mlp_fwd"],
+         "launches": main_path_launches + train_launches["fused_nerf_mlp_fwd"] + kilo_launches,
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()), **{k: k1[k] for k in keys}},
         {"name": "fused_nerf_mlp_bwd", "route": "cuda", "source": "xrnerf_torch/csrc/fused_nerf_mlp_bwd.cu",
          "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:159",

@@ -153,22 +153,54 @@ def test_cast_rays(shape, diag):
         tmip.cast_rays(_t(t), _t(b["rays_o"]), _t(b["rays_d"]), _t(b["radii"]), "sphere")
 
 
+def _truth_close(got, truth, bound, what):
+    """|got - truth| <= bound (elementwise), naming the worst element."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    err = np.abs(got.astype(np.float64) - truth)
+    excess = err - bound
+    i = np.unravel_index(int(np.argmax(excess)), err.shape)
+    assert excess[i] <= 0, (
+        f"{what}: {int((excess > 0).sum())} of {err.size} values past the bound; worst at {i}: "
+        f"got {got[i]!r}, float64 truth {truth[i]!r}, error {err[i]:.3g} > bound {np.broadcast_to(bound, err.shape)[i]:.3g}"
+    )
+
+
+# The f32 error a correct implementation of exp(-v/2) sin(x) and of its
+# variance can reach: both are O(1) results of about eight f32 roundings and
+# two transcendentals accurate to 1 ulp, so 8 ulp of 1.0 (2^-23 each). Both
+# packages sit within 2.2e-7 of the float64 truth on the inputs below.
+F32_TRUTH_ATOL = 8 * 2.0**-23
+
+
 def test_expected_sin():
+    """Each package against a float64 numpy truth on the same f32 inputs, at
+    the bound f32 arithmetic justifies, then against each other at the sum of
+    the two bounds. A failure names the side that is off and the element."""
     rng = np.random.RandomState(7)
     x = rng.uniform(-20, 20, 4096).astype(np.float32)
     v = np.exp(rng.uniform(-12, 3, 4096)).astype(np.float32)
+    x64, v64 = x.astype(np.float64), v.astype(np.float64)
+    mean = np.exp(-0.5 * v64) * np.sin(x64)
+    var = np.maximum(0.5 * (1 - np.exp(-2 * v64) * np.cos(2 * x64)) - mean**2, 0)
     want = jmip.expected_sin(jnp.asarray(x), jnp.asarray(v))
     got = tmip.expected_sin(_t(x), _t(v))
-    for g, w in zip(got, want):
-        _close(g, w)
+    for g, w, truth, k in zip(got, want, (mean, var), ("mean", "variance")):
+        _truth_close(w, truth, F32_TRUTH_ATOL, f"JAX {k}")
+        _truth_close(g, truth, F32_TRUTH_ATOL, f"torch {k}")
+        _close(g, w, rtol=0, atol=2 * F32_TRUTH_ATOL, what=k)
 
 
 @pytest.mark.parametrize("diag", [True, False], ids=["diag", "full"])
 def test_integrated_pos_enc(diag):
     """Degrees 0-16 on the Gaussians of real frusta (means up to ~6, so
-    ``sin`` sees arguments up to ~2e5 at degree 15). Where the argument is
-    large its factor exp(-var * 4^k / 2) is ~0; the terms that survive have
-    arguments where XLA's and torch's f32 ``sin`` agree to the bound."""
+    ``sin`` sees arguments up to ~2e5 at degree 15), held as
+    ``test_expected_sin`` is: each package against a float64 truth, then
+    against each other. The truth takes the mean and variance from the f32
+    Gaussians (scaling by 2^k and 4^k is exact) and is exp(-var/2) times sin
+    and cos of the mean. Both packages take the cosine as the sine of the f32
+    sum ``y + pi/2``, which is off the true argument by up to half an f32
+    ulp of ``|y| + 2``: that, times the damping, is added to the bound of the
+    cosine half, and both packages share it, so it cancels between them."""
     b = _rays(64, seed=8)
     t = _edges(64, 16, seed=9)
     mc = jmip.cast_rays(t, b["rays_o"], b["rays_d"], b["radii"], "cone", diag)
@@ -176,7 +208,18 @@ def test_integrated_pos_enc(diag):
     want = jmip.integrated_pos_enc(tuple(jnp.asarray(a) for a in mc), 0, 16, diag)
     got = tmip.integrated_pos_enc(tuple(_t(a) for a in mc), 0, 16, diag)
     assert got.shape == want.shape == (64 * 16, 96)
-    _close(got, want)
+
+    means = mc[0].astype(np.float64)
+    var = (mc[1] if diag else np.diagonal(mc[1], axis1=-2, axis2=-1)).astype(np.float64)
+    scales = 2.0 ** np.arange(16)
+    y = (means[:, None, :] * scales[:, None]).reshape(len(means), -1)
+    damp = np.exp(-0.5 * (var[:, None, :] * scales[:, None] ** 2).reshape(len(means), -1))
+    truth = np.concatenate([damp * np.sin(y), damp * np.cos(y)], -1)
+    shift = 0.5 * np.spacing(np.abs(y).astype(np.float32) + np.float32(2)).astype(np.float64) * damp
+    bound = F32_TRUTH_ATOL + np.concatenate([np.zeros_like(shift), shift], -1)
+    _truth_close(want, truth, bound, "JAX IPE")
+    _truth_close(got, truth, bound, "torch IPE")
+    _close(got, want, rtol=0, atol=2 * F32_TRUTH_ATOL, what="IPE")
 
 
 @pytest.mark.parametrize("identity", [True, False])

@@ -27,6 +27,10 @@ MIP_MODULES = (
     "datasets.scene", "datasets.load.resize", "datasets.load.blender", "datasets.load.llff", "datasets.load.nsvf",
     "datasets.load.deepvoxels", "datasets.load.linemod",
 )
+KILO_MODULES = (
+    "ops.compaction", "models.fields.kilonerf_field", "models.networks.kilonerf", "datasets.kilonerf",
+    "core.distill", "core.renderer", "core.trainer",
+)
 # the JAX package reads and resizes images with these; no module of the port imports them on import
 IMAGE_LIBS = {"cv2", "imageio"}
 
@@ -182,3 +186,48 @@ def test_mip_entry_points_need_a_card_or_cpu():
         Trainer(net, None, work_dir=None)
     tr = Trainer(net, None, work_dir=None, device="cpu")
     assert tr.device.type == "cpu" and next(tr.network.parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", KILO_MODULES)
+def test_kilo_module_stands_alone(module):
+    """Each KiloNeRF module is among the checked sources and imports neither
+    JAX nor the JAX package."""
+    path = os.path.join(PORT, *module.split(".")) + ".py"
+    assert path in _port_sources()
+    test_source_imports_nothing_of_jax(path)
+
+
+def test_kilo_pipeline_tool_stands_alone():
+    """``tools/torch_kilonerf_pipeline.py`` imports neither JAX nor the JAX
+    package, at the top or inside its functions."""
+    test_source_imports_nothing_of_jax(os.path.join(ROOT, "tools", "torch_kilonerf_pipeline.py"))
+
+
+def test_kilo_entry_points_need_a_card_or_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; the refusal is for hosts without one")
+    import numpy as np
+
+    from xrnerf_torch import DATASETS, NETWORKS, build_network
+    from xrnerf_torch.core.distill import DistillDriver
+    from xrnerf_torch.datasets.kilonerf import KiloNerfDistillDataset
+    from xrnerf_torch.models.networks.kilonerf import build_occupancy_grid
+
+    for name in ("KiloNerfNetwork", "StudentNerfNetwork"):
+        assert name in NETWORKS
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_network(dict(type=name, resolution=(2, 2, 2), hidden=8))
+    assert "KiloNerfDataset" in DATASETS and "KiloNerfDistillDataset" in DATASETS
+
+    def teacher(p, d):
+        return p, p[:, 0]
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DistillDriver(teacher, (-1,) * 3, (1,) * 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KiloNerfDistillDataset(resolution=(2, 2, 2), teacher_fn=teacher)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_occupancy_grid(lambda p: p[:, 0], (-1,) * 3, (1,) * 3, res=(2, 2, 2), subsamples=1)
+    grid = build_occupancy_grid(lambda p: p[:, 0], (-1,) * 3, (1,) * 3, res=(2, 2, 2), subsamples=1,
+                                threshold=0.0, device="cpu")
+    assert grid.tolist() == np.array([[[False] * 2] * 2, [[True] * 2] * 2]).tolist()

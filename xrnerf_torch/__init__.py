@@ -25,10 +25,15 @@ from .registry import (  # noqa: F401
 )
 
 
+from .utils.device import warm_cpu_math
+
+warm_cpu_math()
+
+
 def _register_all():
     """Import modules for registry side effects."""
-    from .datasets import hashnerf, multiscale, scene  # noqa: F401
-    from .models.networks import hashnerf as _hashnerf_net, mipnerf, nerf  # noqa: F401
+    from .datasets import hashnerf, kilonerf, multiscale, scene  # noqa: F401
+    from .models.networks import hashnerf as _hashnerf_net, kilonerf as _kilonerf_net, mipnerf, nerf  # noqa: F401
     from .core import hooks  # noqa: F401
 
 

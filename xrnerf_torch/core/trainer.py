@@ -7,7 +7,8 @@ raises without one unless ``device="cpu"``), initialises its parameters
 from ``seed`` with flax's distributions, builds the optimizer and learning
 rate schedule (same values per step as the JAX package's optax chain), and
 optionally resumes a checkpoint (``resume_from``: step, model, optimizer,
-scheduler, EMA) or loads a ``.pt`` state dict (``load_from``).
+scheduler, EMA) or loads weights (``load_from``: a ``.pt`` state dict, or
+the model of a checkpoint).
 
 Each step draws its randomness from a generator on the network's device
 seeded from ``(seed, step)``, so a resumed run takes the steps a straight
@@ -23,8 +24,11 @@ as buffers, so its ``state_dict`` carries it into checkpoints and weight
 files. Eval renders with the EMA weights and the live state, as the JAX
 trainer evaluates ``(eval_params, aux)``: the EMA network's buffers are
 copied from the network's after every refresh and after a checkpoint or
-weight file is read. The mesh, ``trainable_filter`` and ``param_loss``
-protocols (KiloNeRF, AniNeRF, multi-GPU) come with those slices.
+weight file is read. KiloNeRF's occupancy grid is such a buffer too
+(``KiloNerfNetwork.init_aux`` reads the config's ``.npy``; it has no
+refresh), and a network with ``param_loss()`` has that term added to every
+step's loss (logged as ``param_reg``). The mesh and ``trainable_filter``
+protocols (AniNeRF, multi-GPU) come with those slices.
 """
 
 from __future__ import annotations
@@ -155,7 +159,8 @@ class Trainer:
             self.logger.info("resumed from %s at step %d", resume_from, self.start_step)
         elif load_from:
             sd = torch.load(load_from, map_location=self.device, weights_only=True)
-            self.network.load_state_dict(sd.get("state_dict", sd))
+            # a weights file, or a trainer checkpoint (its "model"), as JAX's load_from reads either
+            self.network.load_state_dict(sd.get("model", sd.get("state_dict", sd)))
             self.logger.info("loaded weights from %s", load_from)
         self.step = self.start_step
 
@@ -228,6 +233,10 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         outputs = self.network(batch, generator=step_generator(self.device, self.seed, step), train=True)
         loss, logs = self.network.loss(outputs, batch)
+        if hasattr(self.network, "param_loss"):
+            reg = self.network.param_loss()
+            loss = loss + reg
+            logs = {**logs, "param_reg": reg, "loss": loss}
         loss.backward()
         if self.grad_clip is not None:
             torch.nn.utils.clip_grad_norm_(self.network.parameters(), self.grad_clip)

@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and the warm-up of torch's
+CPU vector math that importing ``xrnerf_torch`` runs (``warm_cpu_math``).
 
 Entry points default to the card and never fall back to the CPU on their
 own: a run that asked for ``cuda`` on a host without one raises, and the
@@ -19,3 +20,14 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run the plain versions on the CPU"
         )
     return dev
+
+
+def warm_cpu_math() -> None:
+    """Make the process's first call into torch's CPU vector math (MKL's VML,
+    behind ``exp``, ``sin`` and the like on float tensors) from this thread
+    alone. MKL picks its code path on that first call; made from two of
+    torch's intra-op threads at once (a float ``exp`` of more than 2,048
+    elements is split between them), one thread's share ran MKL's AVX2
+    reduced-accuracy kernel, ~1e-4 relative error, in 14 of 420 fresh
+    processes of the CPU tests (none of 300 with this call first)."""
+    torch.exp(torch.zeros(1))

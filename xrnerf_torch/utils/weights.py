@@ -20,9 +20,15 @@ numpy only. A flax ``nn.Dense`` leaf is ``{"kernel": [din, dout], "bias":
 A gradient tree has the parameters' structure, so the same functions carry
 gradients across for leaf-by-leaf comparison.
 
+- KiloNeRF: ``MultiNetworkMLP`` and ``GroupedMultiMLP`` leaves are bare
+  stacked arrays (``mlp/hidden_0_w`` [n_nets, in, out], ``mlp/hidden_0_b``
+  [n_nets, 1, out], ...) and are copied as they are, both ways.
+
 The occupancy grid (``OccupancyGrid(density [C, R^3] f32, bitfield [C, R^3]
 bool)``) travels as the network's ``grid_density`` / ``grid_bitfield``
 buffers: :func:`grid_state_from_jax` and :func:`jax_grid_from_state_dict`.
+KiloNeRF's bool ``occupancy`` buffer is the JAX trainer's aux, not a
+parameter, and is left out of the param tree as well.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 
-_GRID_KEYS = ("grid_density", "grid_bitfield")
+_GRID_KEYS = ("grid_density", "grid_bitfield", "occupancy")
 
 
 def state_dict_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -57,8 +63,8 @@ def state_dict_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str
 
 def jax_params_from_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     """Inverse of :func:`state_dict_from_jax` (values may be numpy arrays or
-    CPU tensors). The grid buffers are left out: see
-    :func:`jax_grid_from_state_dict`."""
+    CPU tensors). The grid buffers (and KiloNeRF's occupancy) are left out:
+    see :func:`jax_grid_from_state_dict`."""
     tree: Dict[str, Any] = {}
     for key, val in state_dict.items():
         if key in _GRID_KEYS:
