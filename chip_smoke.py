@@ -185,7 +185,34 @@ Phases, each printed as one JSON line:
              frame equal to the unculled one where no network is over capacity.
 25. kilo_profile - the frame by kernel group; the culled frame and the budget
              chunk likewise (``kilo_culled_profile``, ``kilo_budget_chunk_profile``).
-26. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+26. bungee - BungeeNeRF at the full width of
+             ``configs/bungeenerf/bungee_multiscale.py`` (4 stages, 64 + 64
+             samples, IPE 0-10, width 256, the config's Adam, ``N_rand`` 1024)
+             on ``BungeeSphereScene`` (the lego camera and analytic sphere from
+             10 orbit poses at each of 4 distances; scale code = distance
+             bucket, far 0): ``iters_per_stage`` cut to 5, so 20 steps cross
+             the 4 stages; a resume to 22; gradients card vs CPU on 256 rays
+             (per leaf cosine > 0.999, norm ratio 0.999-1.001, f32 both sides);
+             a profiled step (by group, host syncs); a 100x100 warm-up frame,
+             then an 800x800 frame at stage 3 and its 32x32 centre against the
+             CPU (>= 40 dB on rgb and acc, CPU mean(acc^2) >= 1e-3).
+27. neuralbody - ``configs/neuralbody/nb_zjumocap.py``'s model at full width
+             (6890 x 16 codes, 96^3 grid, 4 x 32 conv widths, hidden 256, 64
+             samples; f32 cuDNN ``Conv3d``) on ``make_synthetic_zju(n_frames=2,
+             n_cams=4, H=512, W=512, n_verts=6890)`` with the config's
+             dataset: 20 steps, a resume to 22, gradients, a profiled step, a
+             512x512 frame at ``eval_chunk`` 4096 (profiled) and its crop
+             against the CPU, the same bars.
+28. aninerf - ``configs/aninerf/aninerf_zjumocap_train_pose.py``'s model on
+             the same arrays plus 24 joints on SMPL's tree (``ani_arrays``):
+             the same measurements, the knn alone at a step's and a chunk's
+             points, then ``aninerf_zjumocap_novel_pose.py`` from the
+             ``train_pose`` checkpoint (``load_from``) for 10 steps: only
+             ``novel_pose_bw_mlp.*`` moves, every other leaf bit for bit.
+             Each of 26-28 prints one line, with 0 launches of the seven
+             kernels (their counters zeroed before the path and read after).
+29. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+             A line before it gives the script's total seconds.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 2.
@@ -2160,6 +2187,410 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
     return occ_launches + distill_launches
 
 
+# --- BungeeNeRF, NeuralBody and AniNeRF: f32 paths, none of the seven kernels ---
+
+F32_STEPS, F32_LOG = 20, 5  # 4 logging windows; ms/step is the median of windows 2-4
+BUNGEE_ITERS_PER_STAGE = 5  # a 20-step run crosses the config's 4 stages
+BUNGEE_DISTANCES = (5.5, 5.0, 4.5, 4.0)  # orbit radii of stages 0 (far) to 3 (near)
+NOVEL_POSE_STEPS = 10
+SMPL_PARENTS = (-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19, 20, 21)
+# after flax's init (zero biases) a ReLU density can start below zero at every sample of the body, where it
+# passes no gradient and the render stays empty: these density biases are set before training instead
+DENSITY_BIAS = {"neuralbody": ("mlp.alpha.bias", 2.0), "aninerf": ("tpose_human.density_out.bias", 10.0)}
+
+
+def is_conv(name):
+    low = name.lower()
+    return any(s in low for s in ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit"))
+
+
+# kernel groups of the three paths' profiles (the rest is ``elementwise_ms``)
+F32_GROUPS = {"gemm": lambda k: not is_conv(k) and any(s in k for s in ("gemm", "Gemm", "xmma", "cutlass", "gemv")),
+              "conv": is_conv, "argmin": ["ArgMin"],
+              "gather": ["index_elementwise", "indexSelect", "index_select", "vectorized_gather", "gather_kernel",
+                         "indexing_backward", "embedding"],
+              "scatter": ["indexFunc", "index_add", "scatter_kernel", "_scatter_"],
+              "searchsorted": ["searchsorted"], "scan": ["scan", "Scan", "cumsum"],
+              "cat": ["CatArrayBatchedCopy", "cat_"], "adam": ["multi_tensor_apply"]}
+
+
+def f32_profile(run, wall_ms, phase):
+    line = profile_device(run, wall_ms, phase, F32_GROUPS, top=10)
+    line["elementwise_ms"] = line["device_busy_ms"] - sum(line[f"{g}_ms"] for g in F32_GROUPS)
+    return line
+
+
+class BungeeSphereScene:
+    """In-memory training data in ``BungeeDataset``'s batch format (``rays_o``,
+    ``rays_d``, ``radii``, ``scale_code``, ``near``, ``far``, ``target``,
+    ``stage``): :class:`SphereScene`'s lego camera and analytic sphere seen from
+    10 orbit poses at each of four distances (``BUNGEE_DISTANCES``); a
+    camera's scale code is its distance bucket, the farthest 0. Each step
+    draws ``N_rand`` distinct (camera, pixel) entries of the 40 x 640,000 pool
+    of rays, as the dataset's permutation does, and makes only their rays; a
+    ray's ``radii`` is ``get_ray_radii`` of its pixel and its row neighbour.
+    ``stage`` is ``min(step // iters_per_stage, 3)``, a 0-d array."""
+
+    def __init__(self, n_rand, iters_per_stage, near=2.0, far=6.0, seed=SEED):
+        from xrnerf_torch.datasets.rays import intrinsics_from_hwf, spherical_render_poses
+
+        self.N_rand, self.iters_per_stage, self.near, self.far, self.seed = n_rand, iters_per_stage, near, far, seed
+        self.n_stages = len(BUNGEE_DISTANCES)
+        self.H = self.W = 800
+        self.focal = 0.5 * self.W / math.tan(0.5 * 0.6911112070083618)  # lego camera_angle_x
+        self.K = intrinsics_from_hwf(self.H, self.W, self.focal)
+        self.poses = np.concatenate([spherical_render_poses(10, phi=-30.0, radius=r)
+                                     for r in BUNGEE_DISTANCES]).astype(np.float32)
+        self.scale_codes = np.repeat(np.arange(self.n_stages), 10).astype(np.int32)
+
+    def stage_of(self, step):
+        return min(step // self.iters_per_stage, self.n_stages - 1)
+
+    def _dirs(self, cam, row, col):
+        K = self.K
+        d = np.stack([(col - K[0, 2]) / K[0, 0], -(row - K[1, 2]) / K[1, 1], -np.ones_like(col)], axis=-1)
+        return np.einsum("nc,nrc->nr", d.astype(np.float32), self.poses[cam, :3, :3]).astype(np.float32)
+
+    def train_batch(self, step, host_id=0, num_hosts=1):
+        from xrnerf_torch.datasets.rays import get_ray_radii
+
+        rng = np.random.RandomState(self.seed + step)
+        n, hw = self.N_rand, self.H * self.W
+        flat = distinct_draws(rng, n, len(self.poses) * hw)
+        cam, pix = flat // hw, flat % hw
+        row, col = (pix // self.W).astype(np.float32), (pix % self.W).astype(np.float32)
+        d = self._dirs(cam, row, col)
+        left = np.minimum(col, self.W - 2)
+        radii = get_ray_radii(np.stack([self._dirs(cam, row, left), self._dirs(cam, row, left + 1)], 1))[:, 0]
+        o = self.poses[cam, :3, 3].astype(np.float32)
+        return {"rays_o": o, "rays_d": d, "radii": radii, "scale_code": self.scale_codes[cam][:, None].astype(np.float32),
+                "near": np.full((n, 1), self.near, np.float32), "far": np.full((n, 1), self.far, np.float32),
+                "target": SphereScene.colour(o, d), "stage": np.asarray(self.stage_of(step), np.int32)}
+
+    def image_rays(self, pose, size, stage):
+        """Full-image rays of ``pose`` at ``size`` x ``size`` (the lego field
+        of view) with their radii and the 0-d ``stage``."""
+        from xrnerf_torch.datasets.rays import get_ray_radii, get_rays_np, intrinsics_from_hwf
+
+        K = intrinsics_from_hwf(size, size, self.focal * size / self.W)
+        o, d = get_rays_np(size, size, K, pose)
+        n = size * size
+        return {"rays_o": o.reshape(-1, 3), "rays_d": d.reshape(-1, 3), "radii": get_ray_radii(d).reshape(-1, 1),
+                "near": np.full((n, 1), self.near, np.float32), "far": np.full((n, 1), self.far, np.float32),
+                "stage": np.asarray(stage, np.int32)}
+
+
+def ani_arrays(seed=SEED):
+    """``make_synthetic_zju`` at ZJU-MoCap's 1024^2 at ratio 0.5 with SMPL's
+    6,890 vertices, plus 24 joints on SMPL's kinematic tree seeded inside the
+    sphere, blend weights softmax(-distance / 0.1) of each vertex to the
+    joints, and small seeded rotations per frame (so A is not the identity)."""
+    from xrnerf_torch.datasets.load.synthetic import make_synthetic_zju
+
+    arr = make_synthetic_zju(n_frames=2, n_cams=4, H=512, W=512, n_verts=6890, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    v0 = arr["verts"][0]
+    u = rng.randn(24, 3)
+    joints = v0.mean(0) + 0.2 * u / np.linalg.norm(u, axis=-1, keepdims=True) * rng.uniform(0, 1, (24, 1)) ** (1 / 3)
+    d = np.linalg.norm(v0[:, None] - joints[None], axis=-1)
+    w = np.exp(-(d - d.min(1, keepdims=True)) / 0.1)
+    arr.update(joints=joints.astype(np.float32), parents=np.asarray(SMPL_PARENTS),
+               weights=(w / w.sum(1, keepdims=True)).astype(np.float32),
+               poses=(0.1 * rng.randn(2, 24, 3)).astype(np.float32))
+    return arr
+
+
+def f32_counters():
+    return {**ngp_counters(), **nerf_counters()}
+
+
+def launched_any(counters):
+    return {k: f.launches for k, f in counters.items() if f.launches}
+
+
+def train_f32(model_cfg, ds, optimizer, work_dir, what, steps=F32_STEPS, density_bias=None, **kw):
+    """``Trainer.run`` on the card for ``steps`` with windows of ``F32_LOG``
+    (``density_bias``: (parameter, value) set after the init), 0 launches of
+    the seven kernels, finite windows, moving parameters, a checkpoint and a
+    resume by 2 steps: (trainer, windows, ms/step, peak GB)."""
+    from xrnerf_torch import build_network
+    from xrnerf_torch.core.trainer import Trainer
+    from xrnerf_torch.utils import checkpoint as ckpt
+
+    counters = f32_counters()
+
+    def trainer(max_iters, hooks, **extra):
+        return Trainer(build_network(model_cfg, device="cuda"), ds, optimizer=optimizer, work_dir=work_dir,
+                       max_iters=max_iters, log_interval=F32_LOG, ckpt_interval=steps, seed=SEED,
+                       hooks=hooks, device="cuda", **kw, **extra)
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = MipWindowLog()
+    tr = trainer(steps, [rec])
+    if density_bias is not None:
+        with torch.no_grad():
+            tr.network.get_parameter(density_bias[0]).fill_(density_bias[1])
+    start = tr.start_step
+    for f in counters.values():
+        f.launches = 0  # the main path starts here
+    reached = tr.run()
+    torch.cuda.synchronize()
+    if launched_any(counters):  # and ends here
+        raise AssertionError(f"{what} launched hand-written kernels: {launched_any(counters)}")
+    if reached != steps or len(rec.windows) != (steps - start) // F32_LOG or not all(
+            math.isfinite(v) for w in rec.windows for v in w.values()):
+        raise AssertionError(f"{what}: step {reached}, windows {rec.windows}")
+    if not all(w["moved"] > 0 for w in rec.windows):
+        raise AssertionError(f"{what}: the parameters did not move in a window: {[w['moved'] for w in rec.windows]}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    path = ckpt.latest_path(work_dir)
+    if path is None or not path.endswith(f"ckpt_{steps}.pt"):
+        raise AssertionError(f"{what}: no checkpoint at step {steps}: {path}")
+    resumed = trainer(steps + 2, [], resume_from=path)
+    if resumed.start_step != steps or resumed.run() != steps + 2:
+        raise AssertionError(f"{what}: resume did not continue from the checkpoint to step {steps + 2}")
+    del resumed
+    ms_step = float(np.median([w["ms_per_step"] for w in rec.windows[1:]]))
+    return tr, rec.windows, ms_step, peak_gb
+
+
+def grads_f32(model_cfg, sd, batch, what):
+    """The card's loss gradients against the CPU's on one batch, deterministic
+    path, same weights: per leaf cosine > 0.999 and norm ratio 0.999-1.001
+    (f32 both sides, TF32 off); the worst leaf is printed."""
+    from xrnerf_torch import build_network
+
+    grads = {}
+    for side, device in (("card", "cuda"), ("cpu", "cpu")):
+        net = build_network(model_cfg, device=device)
+        net.load_state_dict(sd)
+        b = {k: torch.from_numpy(np.require(v, requirements="C")).to(device) for k, v in batch.items()}
+        loss = net.loss(net(b, generator=None, train=True), b)[0]
+        loss.backward()
+        grads[side] = {k: p.grad.detach().cpu() for k, p in net.named_parameters() if p.grad is not None}
+        grads[side + "_loss"] = loss.item()
+        del net
+    if sorted(grads["card"]) != sorted(grads["cpu"]):
+        raise AssertionError(f"{what}: the card and the CPU differ in which leaves have gradients")
+    nonzero = {k: v for k, v in grads["cpu"].items() if bool(v.any())}
+    per_leaf = check_leaves(what, {k: grads["card"][k] for k in nonzero}, nonzero, KILO_COS, KILO_RATIO)
+    worst = min(per_leaf, key=lambda k: per_leaf[k]["cos"])
+    return {"rays": int(batch["rays_o"].shape[0]), "leaves": len(per_leaf), "loss_card": grads["card_loss"],
+            "loss_cpu": grads["cpu_loss"], "min_cos": per_leaf[worst]["cos"], "worst_leaf": worst,
+            "ratio_range": [min(r["ratio"] for r in per_leaf.values()), max(r["ratio"] for r in per_leaf.values())]}
+
+
+def frame_f32(model_cfg, ds, pt, views, chunk, what):
+    """A second Trainer reads the weights (``load_from``) and renders each
+    (rays, H, W) of ``views`` once (the first a warm-up), 0 launches of the
+    seven kernels: (trainer, last frame's output, its ms, peak GB)."""
+    from xrnerf_torch import build_network
+    from xrnerf_torch.core.trainer import Trainer
+
+    counters = f32_counters()
+    torch.cuda.reset_peak_memory_stats()
+    srv = Trainer(build_network(model_cfg, device="cuda"), ds, work_dir=None, eval_chunk=chunk, seed=SEED + 1,
+                  load_from=pt, device="cuda")
+    for f in counters.values():
+        f.launches = 0  # the main path starts here
+    for rays, H, W in views:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = srv.render_image(rays, H, W)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for k, v in out.items():
+            if v.shape[:2] != (H, W) or not np.isfinite(v).all():
+                raise AssertionError(f"{what} {k}: shape {v.shape} or non-finite values")
+    if launched_any(counters):  # the main path ends here
+        raise AssertionError(f"{what} frames launched hand-written kernels: {launched_any(counters)}")
+    return srv, out, ms, torch.cuda.max_memory_allocated() / 1e9
+
+
+def crop_vs_cpu(model_cfg, pt, rays, out, H, W, ys, xs, chunk, what):
+    """The 32x32 crop (``ys``, ``xs``) re-rendered on the CPU with the same
+    weights: >= 40 dB on rgb and acc, and content on the CPU side (mean(acc^2)
+    >= 1e-3: a background-only card render reads <= 30 dB on acc)."""
+    from xrnerf_torch import build_network
+    from xrnerf_torch.core.renderer import render_image
+    from xrnerf_torch.utils.metrics import psnr
+
+    net = build_network(model_cfg, device="cpu")
+    net.load_state_dict(torch.load(pt, map_location="cpu", weights_only=True))
+    crop = {k: v if k.startswith("ctx_") or np.ndim(v) == 0 else v.reshape(H, W, -1)[ys, xs].reshape(-1, v.shape[-1])
+            for k, v in rays.items()}
+    t0 = time.perf_counter()
+    cpu = render_image(net, crop, 32, 32, chunk=chunk, keys=("rgb", "acc"))
+    got = {"rgb_psnr_db": float(psnr(out["rgb"][ys, xs], cpu["rgb"])),
+           "acc_psnr_db": float(psnr(out["acc"][ys, xs], cpu["acc"])),
+           "cpu_acc_mean": float(cpu["acc"].mean()), "cpu_acc_sq_mean": float((cpu["acc"] ** 2).mean()),
+           "cpu_s": time.perf_counter() - t0}
+    if not (got["rgb_psnr_db"] >= 40.0 and got["acc_psnr_db"] >= 40.0 and got["cpu_acc_sq_mean"] >= 1e-3):
+        raise AssertionError(f"{what}: card vs CPU on the crop {got} (bars: 40 dB on rgb and acc, "
+                             "CPU mean(acc^2) >= 1e-3)")
+    return got
+
+
+def step_summary(tr, ds, ms_step, what):
+    """One more step under torch.profiler (by group) and the host syncs of a step."""
+    tb = tr._put_batch(ds.train_batch(10_000))
+    prof = f32_profile(lambda: tr.train_step(tb, 10_000), ms_step, what)
+    n_syncs, inside = count_host_syncs(lambda: tr.train_step(tb, 10_001))
+    prof.update(cudaStreamSynchronize_per_step=n_syncs, syncs_inside=inside)
+    return prof
+
+
+def bungee_phase(work_dir):
+    """BungeeNeRF at the full width of ``configs/bungeenerf/bungee_multiscale.py``
+    on ``BungeeSphereScene``: 20 steps across the 4 stages, a resume to 22,
+    card-vs-CPU gradients on 256 rays, a profiled step, a 100x100 warm-up frame
+    and an 800x800 frame at stage 3 (crop against the CPU)."""
+    from xrnerf_torch import load_config
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(ROOT, "configs", "bungeenerf", "bungee_multiscale.py"), dataname="scene")
+    model_cfg = dict(cfg["model"], iters_per_stage=BUNGEE_ITERS_PER_STAGE)
+    chunk = int(cfg["eval_chunk"])
+    ds = BungeeSphereScene(int(cfg["data"]["N_rand"]), BUNGEE_ITERS_PER_STAGE)
+    tr, windows, ms_step, train_peak = train_f32(model_cfg, ds, cfg["optimizer"], work_dir, "bungee_train",
+                                                 eval_chunk=chunk)
+    stages = [ds.stage_of(w["step"] - 1) for w in windows]
+    sd = {k: v.detach().cpu() for k, v in tr.network.state_dict().items()}
+    gb = BungeeSphereScene(256, BUNGEE_ITERS_PER_STAGE, seed=SEED + 1000).train_batch(3 * BUNGEE_ITERS_PER_STAGE)
+    grads = grads_f32(model_cfg, sd, gb, "bungee_grads")
+    prof = step_summary(tr, ds, ms_step, "bungee_profile")
+    del tr
+    torch.cuda.empty_cache()
+    pt = os.path.join(work_dir, "bungee_weights.pt")
+    torch.save(sd, pt)
+    pose = ds.poses[30 + 2]  # a stage-3 (nearest) camera
+    H = ds.H
+    rays = ds.image_rays(pose, H, 3)
+    srv, out, frame_ms, frame_peak = frame_f32(model_cfg, ds, pt, [(ds.image_rays(pose, 100, 3), 100, 100),
+                                                                   (rays, H, H)], chunk, "bungee_frame")
+    del srv
+    ys = slice(H // 2 - 16, H // 2 + 16)
+    vs_cpu = crop_vs_cpu(model_cfg, pt, rays, out, H, H, ys, ys, chunk, "bungee_frame")
+    rows = ds.N_rand * 2 * model_cfg["n_samples"]
+    return {"phase": "bungee", "config": "configs/bungeenerf/bungee_multiscale.py", "N_rand": ds.N_rand,
+            "iters_per_stage": BUNGEE_ITERS_PER_STAGE, "steps": F32_STEPS, "resumed_to": F32_STEPS + 2,
+            "window_stages": stages, "window_losses": [w["loss"] for w in windows],
+            "window_ms_per_step": [w["ms_per_step"] for w in windows], "ms_per_step": ms_step,
+            "rays_per_s": ds.N_rand / (ms_step * 1e-3), "mlp_rows_per_step": rows,
+            "device_busy_ms": prof["device_busy_ms"], "idle_share": prof["idle_share"],
+            "host_syncs_per_step": prof["cudaStreamSynchronize_per_step"], "profile": prof,
+            "train_peak_mem_gb": train_peak, "kernel_launches": 0, "grads": grads,
+            "frame": {"H": H, "W": H, "stage": 3, "eval_chunk": chunk, "ms": frame_ms,
+                      "rays_per_s": H * H / (frame_ms * 1e-3), "peak_mem_gb": frame_peak,
+                      "acc_mean": float(out["acc"].mean()), "vs_cpu": vs_cpu},
+            "seconds": time.perf_counter() - t_phase}
+
+
+def human_phases(work_dir):
+    """NeuralBody and AniNeRF at the full width of ``configs/neuralbody/
+    nb_zjumocap.py`` and ``configs/aninerf/`` on ``ani_arrays()``: each
+    trains 20 steps and resumes to 22, its gradients against the CPU's, a
+    profiled step, a 512x512 frame at the config's ``eval_chunk`` (crop
+    against the CPU); AniNeRF then trains ``novel_pose`` from its
+    ``train_pose`` checkpoint (only ``novel_pose_bw_mlp.*`` may move)."""
+    from xrnerf_torch import build_dataset, build_network, load_config
+    from xrnerf_torch.core.trainer import Trainer
+    from xrnerf_torch.models.networks.utils.lbs import closest_vertex
+    from xrnerf_torch.utils import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    arrays = ani_arrays()
+    arrays_s = time.perf_counter() - t0
+    lines = []
+    for name, cfg_path in (("neuralbody", ("neuralbody", "nb_zjumocap.py")),
+                           ("aninerf", ("aninerf", "aninerf_zjumocap_train_pose.py"))):
+        t_phase = time.perf_counter()
+        cfg = load_config(os.path.join(ROOT, "configs", *cfg_path), dataname="313")
+        model_cfg, chunk = dict(cfg["model"]), int(cfg["eval_chunk"])
+        ds = build_dataset(dict(cfg["data"], datadir=None, arrays=arrays))
+        wd = os.path.join(work_dir, name)
+        tr, windows, ms_step, train_peak = train_f32(model_cfg, ds, cfg["optimizer"], wd, f"{name}_train",
+                                                     density_bias=DENSITY_BIAS[name], eval_chunk=chunk)
+        sd = {k: v.detach().cpu() for k, v in tr.network.state_dict().items()}
+        gds = build_dataset(dict(cfg["data"], datadir=None, arrays=arrays, N_rand=256, seed=SEED + 1000))
+        grads = grads_f32(model_cfg, sd, gds.train_batch(0), f"{name}_grads")
+        prof = step_summary(tr, ds, ms_step, f"{name}_profile")
+        line = {"phase": name, "config": os.path.join("configs", *cfg_path), "N_rand": ds.N_rand,
+                "steps": F32_STEPS, "resumed_to": F32_STEPS + 2,
+                "window_losses": [w["loss"] for w in windows], "window_ms_per_step": [w["ms_per_step"] for w in windows],
+                "ms_per_step": ms_step, "rays_per_s": ds.N_rand / (ms_step * 1e-3),
+                "points_per_step": ds.N_rand * model_cfg["n_samples"],
+                "device_busy_ms": prof["device_busy_ms"], "idle_share": prof["idle_share"],
+                "host_syncs_per_step": prof["cudaStreamSynchronize_per_step"], "profile": prof,
+                "train_peak_mem_gb": train_peak, "kernel_launches": 0, "grads": grads}
+        del tr
+        torch.cuda.empty_cache()
+        if name == "aninerf":
+            # knn alone at a step's and an eval chunk's point counts
+            dev = torch.device("cuda")
+            verts = torch.from_numpy(arrays["verts"][0]).to(dev)
+            knn = {}
+            for n_pts in (ds.N_rand * model_cfg["n_samples"], chunk * model_cfg["n_samples"]):
+                pts = torch.randn(n_pts, 3, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED)) * 0.5
+                knn[n_pts] = time_ms(lambda: closest_vertex(pts, verts), reps=3, warmup=1)
+            line["knn_ms"] = knn
+            # novel_pose from the train_pose checkpoint: only novel_pose_bw_mlp.* moves
+            ncfg = load_config(os.path.join(ROOT, "configs", "aninerf", "aninerf_zjumocap_novel_pose.py"),
+                               dataname="313")
+            path = ckpt.latest_path(wd)
+            loaded = torch.load(path, map_location="cpu", weights_only=True)["model"]
+            counters = f32_counters()
+            ntr = Trainer(build_network(ncfg["model"], device="cuda"), ds, optimizer=ncfg["optimizer"],
+                          work_dir=os.path.join(work_dir, "novel_pose"), max_iters=NOVEL_POSE_STEPS,
+                          log_interval=F32_LOG, ckpt_interval=0, seed=SEED, eval_chunk=chunk, load_from=path,
+                          ema_decay=ncfg.get("ema_decay", 0.0), device="cuda")
+            for f in counters.values():
+                f.launches = 0  # the main path starts here
+            t_np = time.perf_counter()
+            ntr.run()
+            torch.cuda.synchronize()
+            np_s = time.perf_counter() - t_np
+            if launched_any(counters):  # and ends here
+                raise AssertionError(f"novel_pose launched hand-written kernels: {launched_any(counters)}")
+            moved, kept = [], 0
+            for net in [ntr.network] + ([ntr.ema_network] if ntr.ema_network is not None else []):
+                for k, v in net.state_dict().items():
+                    same = torch.equal(v.cpu(), loaded[k])
+                    if k.startswith("novel_pose_bw_mlp."):
+                        moved.append(not same)
+                    elif not same:
+                        raise AssertionError(f"novel_pose: {k} moved")
+                    else:
+                        kept += 1
+            if not all(moved) or not math.isfinite(ntr.last_logs["loss"]):
+                raise AssertionError(f"novel_pose: novel_pose_bw_mlp leaves moved {moved}, logs {ntr.last_logs}")
+            line["novel_pose"] = {"steps": NOVEL_POSE_STEPS, "loaded_from": os.path.basename(path),
+                                  "trained_leaves": len(ntr.trained_params), "leaves_moved": sum(moved),
+                                  "leaves_kept_bit_for_bit": kept, "ema": ntr.ema_network is not None,
+                                  "last_loss": ntr.last_logs["loss"], "ms_per_step": ntr.last_logs["ms_per_step"],
+                                  "seconds": np_s, "kernel_launches": 0}
+            del ntr
+            torch.cuda.empty_cache()
+        pt = os.path.join(work_dir, f"{name}_weights.pt")
+        torch.save(sd, pt)
+        rays, gt = ds.eval_item(0)
+        H, W = gt.shape[:2]
+        srv, out, frame_ms, frame_peak = frame_f32(model_cfg, ds, pt, [(rays, H, W), (rays, H, W)], chunk,
+                                                   f"{name}_frame")
+        fprof = f32_profile(lambda: srv.render_image(rays, H, W), frame_ms, f"{name}_frame_profile")
+        del srv
+        torch.cuda.empty_cache()
+        ys, xs = slice(H // 2 - 16, H // 2 + 16), slice(W // 2 - 16, W // 2 + 16)
+        vs_cpu = crop_vs_cpu(model_cfg, pt, rays, out, H, W, ys, xs, chunk, f"{name}_frame")
+        line["frame"] = {"H": H, "W": W, "eval_chunk": chunk, "chunks": math.ceil(H * W / chunk), "ms": frame_ms,
+                         "rays_per_s": H * W / (frame_ms * 1e-3), "peak_mem_gb": frame_peak,
+                         "acc_mean": float(out["acc"].mean()), "vs_cpu": vs_cpu, "profile": fprof}
+        line["seconds"] = time.perf_counter() - t_phase
+        lines.append(line)
+    lines[0]["arrays_s"] = arrays_s
+    return lines
+
+
 def nerf_counters():
     """The launch counters of the two vanilla-NeRF kernels."""
     from xrnerf_torch.ops import fused_nerf_mlp as fm
@@ -2168,6 +2599,7 @@ def nerf_counters():
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
         return 2
@@ -2350,7 +2782,17 @@ def main() -> int:
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
-    # 26. kernels
+    # 26-28. BungeeNeRF, NeuralBody and AniNeRF at full width (f32, none of the seven kernels)
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_f32_")
+    try:
+        emit(bungee_phase(work_dir))
+        for line in human_phases(work_dir):
+            emit(line)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+
+    # 29. kernels
     k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
     keys = ("rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [

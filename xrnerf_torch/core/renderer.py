@@ -4,8 +4,11 @@
 Rays are padded to a whole number of chunks by repeating the last ray, so
 every call to the network sees the same shape; each chunk is moved to the
 model's device, and the results stay there until one copy back to numpy at
-the end. ``keys`` names the outputs to keep; one that the network does not
-return is left out of the result (``HashNerfNetwork`` returns ``depth``
+the end. Keys that start with ``ctx_``, and 0-d arrays, are context shared by
+every chunk (NeuralBody's SMPL vertices and bounds, a frame index, Bungee's
+stage): they go to the device once per image, are never padded or chunked,
+and are merged into every chunk's batch. ``keys`` names the outputs to keep;
+one that the network does not return is left out of the result (``HashNerfNetwork`` returns ``depth``
 and no ``disp``, so the default keys give its ``rgb`` and ``acc``; pass
 ``"depth"`` for its depth map). Multi-GPU meshes are not ported yet.
 """
@@ -39,7 +42,9 @@ def render_rays_chunked(
     with the first active ray, whose extra renders are dropped); a fully
     culled frame renders one probe chunk to learn the outputs' shapes."""
     device = next(model.parameters()).device
-    ray_keys = {k: v for k, v in rays.items() if k != "target"}
+    ctx = {k: torch.from_numpy(np.require(v, requirements="C")).to(device)
+           for k, v in rays.items() if k.startswith("ctx_") or np.ndim(v) == 0}
+    ray_keys = {k: v for k, v in rays.items() if k not in ctx and k != "target"}
     n = next(iter(ray_keys.values())).shape[0]
     n_pad = (-n) % chunk
     padded = {
@@ -53,7 +58,7 @@ def render_rays_chunked(
         outs: Dict[str, list] = {k: [] for k in keys}
         for part in parts:
             cb = {k: torch.from_numpy(np.ascontiguousarray(v[part])).to(device) for k, v in padded.items()}
-            ret = model(cb, train=False)
+            ret = model({**cb, **ctx}, train=False)
             for k in keys:
                 if k in ret:
                     outs[k].append(ret[k])

@@ -27,8 +27,15 @@ copied from the network's after every refresh and after a checkpoint or
 weight file is read. KiloNeRF's occupancy grid is such a buffer too
 (``KiloNerfNetwork.init_aux`` reads the config's ``.npy``; it has no
 refresh), and a network with ``param_loss()`` has that term added to every
-step's loss (logged as ``param_reg``). The mesh and ``trainable_filter``
-protocols (AniNeRF, multi-GPU) come with those slices.
+step's loss (logged as ``param_reg``).
+
+A network whose ``trainable_filter()`` returns a predicate on the dotted
+state-dict names (AniNeRF's ``novel_pose``: ``"novel_pose_bw_mlp" in
+name``) trains only the parameters that pass it: the optimizer, the
+``grad_clip`` norm and the EMA cover those alone, and the others get
+``requires_grad_(False)``, so they take no update, as the JAX trainer's
+``optax.set_to_zero`` branch gives them none. The mesh protocol
+(multi-GPU) comes with its slice.
 """
 
 from __future__ import annotations
@@ -126,6 +133,12 @@ class Trainer:
         device="cuda",
     ):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # cuDNN times its algorithms for each conv shape once and keeps the fastest, as XLA autotunes its
+            # convolutions: NeuralBody's f32 weight gradients run ~2.9x faster than cuDNN's heuristic pick
+            # (tools/torch_conv_probe.py). torch keeps a shape's plan however it was chosen, so this comes
+            # before any convolution runs.
+            torch.backends.cudnn.benchmark = True
         self.network = network.to(self.device)
         self.dataset = dataset
         self.work_dir = work_dir
@@ -145,9 +158,15 @@ class Trainer:
         self.network.reset_parameters(torch.Generator().manual_seed(seed))
         if hasattr(self.network, "init_aux"):
             self.network.init_aux(dataset)
+        self.trained_params = list(self.network.parameters())
+        filt = self.network.trainable_filter() if hasattr(self.network, "trainable_filter") else None
+        if filt is not None:
+            for name, p in self.network.named_parameters():
+                p.requires_grad_(bool(filt(name)))
+            self.trained_params = [p for p in self.trained_params if p.requires_grad]
         opt_cfg = dict(optimizer or {})
         opt_cfg.setdefault("max_steps", max_iters)
-        self.optimizer, self.scheduler, self.grad_clip = build_optimizer(self.network.parameters(), opt_cfg)
+        self.optimizer, self.scheduler, self.grad_clip = build_optimizer(self.trained_params, opt_cfg)
         self.start_step = 0
 
         if resume_from:
@@ -192,7 +211,7 @@ class Trainer:
         on the card, a plain conversion on the CPU."""
         out = {}
         for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
+            t = torch.from_numpy(np.require(v, requirements="C"))  # keeps a 0-d array 0-d
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t
@@ -202,7 +221,8 @@ class Trainer:
         d = self.ema_decay
         with torch.no_grad():
             for e, p in zip(self.ema_network.parameters(), self.network.parameters()):
-                e.mul_(d).add_(p, alpha=1 - d)
+                if p.requires_grad:  # a frozen parameter's average is itself
+                    e.mul_(d).add_(p, alpha=1 - d)
 
     def _sync_ema_buffers(self) -> None:
         """The EMA copy averages parameters only; its buffers (the occupancy
@@ -239,7 +259,7 @@ class Trainer:
             logs = {**logs, "param_reg": reg, "loss": loss}
         loss.backward()
         if self.grad_clip is not None:
-            torch.nn.utils.clip_grad_norm_(self.network.parameters(), self.grad_clip)
+            torch.nn.utils.clip_grad_norm_(self.trained_params, self.grad_clip)
         self.optimizer.step()
         self.scheduler.step()
         if self.ema_network is not None:

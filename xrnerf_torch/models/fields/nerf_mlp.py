@@ -31,14 +31,34 @@ from ...ops.fused_nerf_mlp import fused_nerf_mlp, fused_nerf_mlp_fwd, pack_param
 _TRUNC_STD = 0.87962566103423978
 
 
-def lecun_normal_(linear: nn.Linear, generator: Optional[torch.Generator]) -> None:
-    """flax ``Dense`` init: lecun-normal (truncated) kernel, zero bias."""
-    std = math.sqrt(1.0 / linear.in_features) / _TRUNC_STD
-    w = torch.empty(linear.weight.shape, dtype=torch.float32)
+def lecun_normal_(layer: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """flax ``Dense`` / ``Conv`` init: lecun-normal (truncated) kernel over
+    the fan-in (``in`` for a ``Linear``, ``in * kd * kh * kw`` for a
+    ``Conv3d``), zero bias."""
+    std = math.sqrt(1.0 / layer.weight[0].numel()) / _TRUNC_STD
+    w = torch.empty(layer.weight.shape, dtype=torch.float32)
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
     with torch.no_grad():
-        linear.weight.copy_(w)
-        linear.bias.zero_()
+        layer.weight.copy_(w)
+        layer.bias.zero_()
+
+
+def embed_normal_(embedding: nn.Embedding, generator: Optional[torch.Generator]) -> None:
+    """flax ``Embed`` init (``default_embed_init``): normal, std 1/sqrt(features)."""
+    w = torch.empty(embedding.weight.shape, dtype=torch.float32)
+    nn.init.normal_(w, 0.0, 1.0 / math.sqrt(embedding.embedding_dim), generator=generator)
+    with torch.no_grad():
+        embedding.weight.copy_(w)
+
+
+def flax_init_(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """flax's initialisation for every ``Linear``, ``Conv3d`` and
+    ``Embedding`` under ``module``, in registration order."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv3d)):
+            lecun_normal_(m, generator)
+        elif isinstance(m, nn.Embedding):
+            embed_normal_(m, generator)
 
 
 class NerfMLP(nn.Module):
@@ -78,9 +98,7 @@ class NerfMLP(nn.Module):
         self._pack = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                lecun_normal_(m, generator)
+        flax_init_(self, generator)
 
     def packed(self):
         """The kernel's weight pack, rebuilt when a parameter changes."""

@@ -17,6 +17,13 @@ numpy only. A flax ``nn.Dense`` leaf is ``{"kernel": [din, dout], "bias":
   layouts and is copied as it is: vertex [L, T, F], brick
   [L, n_lattices, tb, 8F].
 
+- a flax ``nn.Conv`` kernel ``[kd, kh, kw, in, out]`` is a ``Conv3d``
+  ``weight`` ``[out, in, kd, kh, kw]`` (``transpose(4, 3, 0, 1, 2)``; a
+  plain ``.T`` would reverse the spatial axes too), its bias ``bias``;
+- a flax ``nn.Embed`` ``{"embedding": [n, d]}`` is an ``nn.Embedding``
+  ``weight`` [n, d]. Going back, a 2-D ``weight`` with no ``bias`` beside it
+  is an ``Embed`` table (every ``Linear`` of the port has a bias).
+
 A gradient tree has the parameters' structure, so the same functions carry
 gradients across for leaf-by-leaf comparison.
 
@@ -41,10 +48,9 @@ _GRID_KEYS = ("grid_density", "grid_bitfield", "occupancy")
 
 
 def state_dict_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
-    """flax params of a ``NerfMLP`` / ``NerfNetwork`` / ``NGPField`` /
-    ``HashNerfNetwork`` (nested dicts of arrays) -> the port's ``state_dict``
-    entries (flat, numpy float32). ``prefix`` is put before every key
-    (``"field."`` for a bare ``NGPField`` tree)."""
+    """flax params of a network of the port (nested dicts of arrays) -> the
+    port's ``state_dict`` entries (flat, numpy float32). ``prefix`` is put
+    before every key (``"field."`` for a bare ``NGPField`` tree)."""
     out: Dict[str, np.ndarray] = {}
     for name, sub in params.items():
         if name.startswith("layers_"):
@@ -53,8 +59,12 @@ def state_dict_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str
         if not isinstance(sub, Mapping):
             out[key] = np.array(sub, np.float32)
         elif "kernel" in sub:
-            out[f"{key}.weight"] = np.array(np.asarray(sub["kernel"]).T, np.float32, order="C")
+            kernel = np.asarray(sub["kernel"])
+            kernel = kernel.transpose(4, 3, 0, 1, 2) if kernel.ndim == 5 else kernel.T
+            out[f"{key}.weight"] = np.array(kernel, np.float32, order="C")
             out[f"{key}.bias"] = np.array(sub["bias"], np.float32)
+        elif set(sub) == {"embedding"}:
+            out[f"{key}.weight"] = np.array(sub["embedding"], np.float32)
         else:
             out.update(state_dict_from_jax(sub, prefix=f"{key}."))
     return out
@@ -74,7 +84,11 @@ def jax_params_from_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
         for p in path:
             node = node.setdefault(f"layers_{p}" if p.isdigit() else p, {})
         arr = np.asarray(val)
-        if leaf == "weight":
+        if leaf == "weight" and arr.ndim == 5:
+            node["kernel"] = np.array(arr.transpose(2, 3, 4, 1, 0), np.float32, order="C")
+        elif leaf == "weight" and key[: -len("weight")] + "bias" not in state_dict:
+            node["embedding"] = np.array(arr, np.float32)
+        elif leaf == "weight":
             node["kernel"] = np.array(arr.T, np.float32, order="C")
         elif leaf == "bias":
             node["bias"] = np.array(arr, np.float32)
