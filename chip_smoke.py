@@ -5,7 +5,9 @@
 
 Phases, each printed as one JSON line:
 
-1. device  - the card's name and power limit (``nvidia-smi``); TF32 off.
+1. device  - the card's name and power limit (``nvidia-smi``); the flags
+             of ``utils/device.py:configure_card`` (TF32 off, cuDNN's
+             search on), checked again at the end.
 2. build   - the CUDA kernels ``xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu``,
              ``fused_nerf_mlp_bwd.cu``, ``fused_mlp_fwd.cu``,
              ``fused_mlp_bwd.cu`` and ``scatter_rows.cu``, one nvcc each,
@@ -1162,6 +1164,16 @@ NGP_STEP_GROUPS = {
     "adam": ["multi_tensor_apply"]}
 
 
+def kernel_counters():
+    """The launch counters of all seven kernels' wrappers."""
+    return {**ngp_counters(), **nerf_counters()}
+
+
+def launched_any(counters):
+    """The counters of ``counters`` that counted a launch."""
+    return {k: f.launches for k, f in counters.items() if f.launches}
+
+
 def ngp_counters():
     """The launch counters of the NGP path's kernels: ``scatter_add_rows`` is
     the scatter kernel as the encodings launch it (all levels at once);
@@ -1531,7 +1543,7 @@ def mip_phases(work_dir):
 
     cfg = load_config(os.path.join(ROOT, "configs", "mipnerf", "mipnerf_multiscale.py"), dataname="lego")
     model_cfg = dict(cfg["model"])
-    counters = {**ngp_counters(), **nerf_counters()}
+    counters = kernel_counters()
     ds = MipSphereScene(N_RAND)
 
     # the schedule a run of the config follows: its log-lerp spans the config's max_iters, not these 40 steps
@@ -1542,9 +1554,6 @@ def mip_phases(work_dir):
                        max_iters=max_iters, log_interval=MIP_LOG, ckpt_interval=MIP_STEPS, seed=SEED,
                        eval_chunk=int(cfg["eval_chunk"]), hooks=hooks, device="cuda", **kw)
 
-    def launched():
-        return {k: f.launches for k, f in counters.items() if f.launches}
-
     # 17. training
     torch.cuda.reset_peak_memory_stats()
     rec = MipWindowLog()
@@ -1553,8 +1562,8 @@ def mip_phases(work_dir):
         f.launches = 0  # the main path starts here
     reached = tr.run()
     torch.cuda.synchronize()
-    if launched():  # and ends here
-        raise AssertionError(f"the Mip-NeRF path launched hand-written kernels: {launched()}")
+    if launched_any(counters):  # and ends here
+        raise AssertionError(f"the Mip-NeRF path launched hand-written kernels: {launched_any(counters)}")
     if reached != MIP_STEPS:
         raise AssertionError(f"Mip-NeRF training stopped at step {reached}")
     losses = [w["loss"] for w in rec.windows]
@@ -1642,8 +1651,8 @@ def mip_phases(work_dir):
             if v.shape[:2] != (H, W) or not np.isfinite(v).all():
                 raise AssertionError(f"mip scale {s} {k}: shape {v.shape} or non-finite values")
         views[s], frames[s] = (rays, out), frame_ms
-    if launched():  # the main path ends here
-        raise AssertionError(f"Mip-NeRF frames launched hand-written kernels: {launched()}")
+    if launched_any(counters):  # the main path ends here
+        raise AssertionError(f"Mip-NeRF frames launched hand-written kernels: {launched_any(counters)}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     (rays, out), H = views[0], ds.H
     cpu_net = build_network(model_cfg, device="cpu")
@@ -1769,12 +1778,9 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
     chunk = int(fin["eval_chunk"])
     scene = KiloSphereScene(int(fin["data"]["N_rand"]), fin["data"]["near"], fin["data"]["far"])
     np.save(occ_path, scene.occupancy(KILO_OCC_RES, dmin, dmax))
-    counters = {**ngp_counters(), **nerf_counters()}
+    counters = kernel_counters()
     fwd = counters["fused_nerf_mlp_fwd"]
     dev = torch.device("cuda", 0)
-
-    def launched():
-        return {k: f.launches for k, f in counters.items() if f.launches}
 
     teacher = build_network(teacher_cfg, device="cuda")
     teacher.load_state_dict(teacher_sd)
@@ -1935,8 +1941,8 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
         f.launches = 0  # the main path starts here
     reached = tr.run()
     torch.cuda.synchronize()
-    if launched():  # and ends here
-        raise AssertionError(f"the KiloNeRF finetune launched hand-written kernels: {launched()}")
+    if launched_any(counters):  # and ends here
+        raise AssertionError(f"the KiloNeRF finetune launched hand-written kernels: {launched_any(counters)}")
     losses = [w["loss"] for w in rec.windows]
     if reached != KILO_STEPS or len(losses) != KILO_STEPS // KILO_LOG or not all(
             math.isfinite(v) for w in rec.windows for v in w.values()):
@@ -2077,8 +2083,8 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
         culled = render_rays_chunked(net, rays, chunk=chunk, active_fn=active)
         torch.cuda.synchronize()
         culled_ms.append((time.perf_counter() - t0) * 1e3)
-    if launched():  # the main path ends here
-        raise AssertionError(f"KiloNeRF frames launched hand-written kernels: {launched()}")
+    if launched_any(counters):  # the main path ends here
+        raise AssertionError(f"KiloNeRF frames launched hand-written kernels: {launched_any(counters)}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # culling is output-identical where no network is over capacity: the same weights with a capacity that
     # holds every chunk's largest network load, culled chunks or not, render the two frames alike
@@ -2300,14 +2306,6 @@ def ani_arrays(seed=SEED):
     return arr
 
 
-def f32_counters():
-    return {**ngp_counters(), **nerf_counters()}
-
-
-def launched_any(counters):
-    return {k: f.launches for k, f in counters.items() if f.launches}
-
-
 def train_f32(model_cfg, ds, optimizer, work_dir, what, steps=F32_STEPS, density_bias=None, **kw):
     """``Trainer.run`` on the card for ``steps`` with windows of ``F32_LOG``
     (``density_bias``: (parameter, value) set after the init), 0 launches of
@@ -2317,7 +2315,7 @@ def train_f32(model_cfg, ds, optimizer, work_dir, what, steps=F32_STEPS, density
     from xrnerf_torch.core.trainer import Trainer
     from xrnerf_torch.utils import checkpoint as ckpt
 
-    counters = f32_counters()
+    counters = kernel_counters()
 
     def trainer(max_iters, hooks, **extra):
         return Trainer(build_network(model_cfg, device="cuda"), ds, optimizer=optimizer, work_dir=work_dir,
@@ -2357,7 +2355,8 @@ def train_f32(model_cfg, ds, optimizer, work_dir, what, steps=F32_STEPS, density
 def grads_f32(model_cfg, sd, batch, what):
     """The card's loss gradients against the CPU's on one batch, deterministic
     path, same weights: per leaf cosine > 0.999 and norm ratio 0.999-1.001
-    (f32 both sides, TF32 off); the worst leaf is printed."""
+    (f32 both sides, TF32 off), and a leaf that is zero on the CPU is zero
+    on the card; the worst leaf is printed."""
     from xrnerf_torch import build_network
 
     grads = {}
@@ -2373,6 +2372,9 @@ def grads_f32(model_cfg, sd, batch, what):
     if sorted(grads["card"]) != sorted(grads["cpu"]):
         raise AssertionError(f"{what}: the card and the CPU differ in which leaves have gradients")
     nonzero = {k: v for k, v in grads["cpu"].items() if bool(v.any())}
+    stray = {k: float(v.abs().max()) for k, v in grads["card"].items() if k not in nonzero and bool(v.any())}
+    if stray:
+        raise AssertionError(f"{what}: zero on the CPU but not on the card (max |grad|): {stray}")
     per_leaf = check_leaves(what, {k: grads["card"][k] for k in nonzero}, nonzero, KILO_COS, KILO_RATIO)
     worst = min(per_leaf, key=lambda k: per_leaf[k]["cos"])
     return {"rays": int(batch["rays_o"].shape[0]), "leaves": len(per_leaf), "loss_card": grads["card_loss"],
@@ -2387,7 +2389,7 @@ def frame_f32(model_cfg, ds, pt, views, chunk, what):
     from xrnerf_torch import build_network
     from xrnerf_torch.core.trainer import Trainer
 
-    counters = f32_counters()
+    counters = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     srv = Trainer(build_network(model_cfg, device="cuda"), ds, work_dir=None, eval_chunk=chunk, seed=SEED + 1,
                   load_from=pt, device="cuda")
@@ -2539,7 +2541,7 @@ def human_phases(work_dir):
                                dataname="313")
             path = ckpt.latest_path(wd)
             loaded = torch.load(path, map_location="cpu", weights_only=True)["model"]
-            counters = f32_counters()
+            counters = kernel_counters()
             ntr = Trainer(build_network(ncfg["model"], device="cuda"), ds, optimizer=ncfg["optimizer"],
                           work_dir=os.path.join(work_dir, "novel_pose"), max_iters=NOVEL_POSE_STEPS,
                           log_interval=F32_LOG, ckpt_interval=0, seed=SEED, eval_chunk=chunk, load_from=path,
@@ -2598,6 +2600,22 @@ def nerf_counters():
     return {"fused_nerf_mlp_fwd": fm.fused_nerf_mlp_fwd, "fused_nerf_mlp_bwd": fm.fused_nerf_mlp_bwd}
 
 
+# what ``utils.device.configure_card`` promises: f32 matmul and convolutions, cuDNN's algorithm search on
+CARD_FLAGS = {"matmul_tf32": False, "cudnn_tf32": False, "cudnn_benchmark": True}
+
+
+def card_flags():
+    return {"matmul_tf32": torch.backends.cuda.matmul.allow_tf32, "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+            "cudnn_benchmark": torch.backends.cudnn.benchmark}
+
+
+def check_card_flags(when):
+    """The CUDA math flags are what the package's ``configure_card`` set (the
+    smoke sets none itself), at the start and after every phase ran."""
+    if card_flags() != CARD_FLAGS:
+        raise AssertionError(f"CUDA math flags at the {when}: {card_flags()}, expected {CARD_FLAGS}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2611,6 +2629,7 @@ def main() -> int:
     from xrnerf_torch.datasets.rays import get_rays_np, intrinsics_from_hwf, spherical_render_poses
     from xrnerf_torch.ops import build
     from xrnerf_torch.ops.fused_nerf_mlp import fused_nerf_mlp_fwd, pack_params
+    from xrnerf_torch.utils.device import configure_card
     from xrnerf_torch.utils.metrics import psnr
     from xrnerf_torch.utils.weights import state_dict_from_jax
 
@@ -2620,12 +2639,12 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    configure_card()  # the CLI's set-up on the card (run_nerf.main)
+    check_card_flags("start")
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "name": kind, "count": torch.cuda.device_count(),
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda, "math_flags": card_flags()})
 
     # 2. build
     t0 = time.perf_counter()
@@ -2790,6 +2809,7 @@ def main() -> int:
             emit(line)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+    check_card_flags("end")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     # 29. kernels

@@ -539,3 +539,33 @@ def test_cli_trains_and_tests_neuralbody(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.load(open(tmp_path / "test_only" / "test" / "test_results.json"))
     assert res["psnr"]["0"] == pytest.approx(tr.eval_metrics["psnr"][0], abs=1e-4)
+
+
+def test_cli_sets_card_math_before_building(monkeypatch):
+    """On the card the CLI calls ``configure_card`` before it builds anything,
+    and on the CPU it does not; ``configure_card`` turns TF32 off for matmul
+    and cuDNN (the JAX conv stack is f32) and cuDNN's algorithm search on."""
+    from types import SimpleNamespace
+
+    from xrnerf_torch.utils import device as device_mod
+
+    configure_card = device_mod.configure_card
+    calls = []
+    monkeypatch.setattr(device_mod, "configure_card", lambda: calls.append("configure_card"))
+    monkeypatch.setattr(run_nerf, "build_from_config",
+                        lambda cfg, args: calls.append(args.device) or SimpleNamespace(run=lambda: None))
+    cfg = os.path.join(ROOT, "configs", "neuralbody", "nb_zjumocap.py")
+    for device in ("cpu", "cuda"):
+        run_nerf.main(["--config", cfg, "--device", device, "--max_iters", "1"])
+    assert calls == ["cpu", "configure_card", "cuda"]
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.benchmark = False
+        configure_card()
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                torch.backends.cudnn.benchmark) == (False, False, True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.benchmark) = flags

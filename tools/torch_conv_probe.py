@@ -10,9 +10,9 @@ ZJU-like arrays and times one ``Trainer.train_step`` (CUDA events, median of
 gradient, weight gradient; torch.profiler), with
 ``torch.backends.cudnn.benchmark`` off (cuDNN's heuristic picks each
 algorithm) and on (cuDNN times its algorithms for each shape once and keeps
-the fastest; ``Trainer``'s setting on the card). PyTorch keeps a shape's
-plan whichever way it was chosen, so each setting runs in a process of its
-own, in turns off, on, on, off.
+the fastest; ``utils.device.configure_card``'s setting). PyTorch keeps
+a shape's plan whichever way it was chosen, so each setting runs in a
+process of its own, in turns off, on, on, off.
 Prints JSON lines, the card's name and power limit first. Needs a card.
 """
 
@@ -55,16 +55,17 @@ def main() -> int:
             subprocess.run([sys.executable, os.path.abspath(__file__), "--one"], check=True, timeout=600,
                            env=dict(os.environ, CUDNN_SEARCH=benchmark))
         return 0
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     from xrnerf_torch import build_dataset, build_network, load_config
     from xrnerf_torch.core.trainer import Trainer
+    from xrnerf_torch.utils.device import configure_card
+
+    configure_card()
+    torch.backends.cudnn.benchmark = os.environ["CUDNN_SEARCH"] == "1"  # configure_card's setting is on
 
     cfg = load_config(os.path.join(ROOT, "configs", "neuralbody", "nb_zjumocap.py"), dataname="313")
     ds = build_dataset(dict(cfg["data"], datadir=None, arrays=C.ani_arrays()))
     tr = Trainer(build_network(cfg["model"], device="cuda"), ds, optimizer=cfg["optimizer"], work_dir=None,
                  max_iters=1, ckpt_interval=0, seed=C.SEED, device="cuda")
-    torch.backends.cudnn.benchmark = os.environ["CUDNN_SEARCH"] == "1"  # the Trainer's default is on
     name, value = C.DENSITY_BIAS["neuralbody"]
     with torch.no_grad():
         tr.network.get_parameter(name).fill_(value)

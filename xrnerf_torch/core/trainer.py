@@ -36,6 +36,10 @@ name``) trains only the parameters that pass it: the optimizer, the
 ``requires_grad_(False)``, so they take no update, as the JAX trainer's
 ``optax.set_to_zero`` branch gives them none. The mesh protocol
 (multi-GPU) comes with its slice.
+
+The Trainer sets no process-wide flag: on the card, call
+``utils.device.configure_card`` before building it (TF32 off, cuDNN's
+algorithm search on), as ``run_nerf.main`` does.
 """
 
 from __future__ import annotations
@@ -133,12 +137,6 @@ class Trainer:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # cuDNN times its algorithms for each conv shape once and keeps the fastest, as XLA autotunes its
-            # convolutions: NeuralBody's f32 weight gradients run ~2.9x faster than cuDNN's heuristic pick
-            # (tools/torch_conv_probe.py). torch keeps a shape's plan however it was chosen, so this comes
-            # before any convolution runs.
-            torch.backends.cudnn.benchmark = True
         self.network = network.to(self.device)
         self.dataset = dataset
         self.work_dir = work_dir

@@ -14,8 +14,8 @@ Padding: flax's ``padding="SAME"`` pads ``total = max((ceil(n / s) - 1) s
 after; ``Conv3d``'s symmetric ``padding=1`` would shift the output grid by
 one voxel. The port pads explicitly with ``F.pad`` and convolves with
 ``padding=0`` wherever the two pads differ. f32 throughout (cuDNN on the
-card, TF32 off as the caller sets it): the JAX embedder runs plain
-``nn.Conv`` and reaches no Pallas kernel.
+card, TF32 off as ``utils.device.configure_card`` sets it): the JAX
+embedder runs plain ``nn.Conv`` and reaches no Pallas kernel.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@
     python -m xrnerf_torch.run_nerf --config ... --test_only --load_from weights.pt
 
 Flags are those of the top-level ``run_nerf.py`` plus ``--device``
-(default ``cuda``; raises without a card unless ``--device cpu``).
+(default ``cuda``; raises without a card unless ``--device cpu``). On the
+card it first calls ``utils.device.configure_card`` (f32 math, TF32 off).
 Without ``--test_only``/``--render_only`` it trains (``Trainer.run``) with
 the config's optimizer, intervals, hooks and ``ema_decay``;
 ``--test_only`` writes ``<work_dir>/test/test_results.json``;
@@ -64,7 +65,11 @@ def main(argv=None):
     from xrnerf_torch import load_config
     from xrnerf_torch.core.hooks import SaveSpiralHook, TestHook
 
+    from xrnerf_torch.utils.device import configure_card
+
     cfg = load_config(args.config, dataname=args.dataname)
+    if args.device == "cuda":
+        configure_card()
     tr = build_from_config(cfg, args)
     if args.render_only:
         SaveSpiralHook().on_eval(tr, tr.step)

@@ -4,7 +4,10 @@ CPU vector math that importing ``xrnerf_torch`` runs (``warm_cpu_math``).
 Entry points default to the card and never fall back to the CPU on their
 own: a run that asked for ``cuda`` on a host without one raises, and the
 CPU path (which runs every kernel's plain version) is taken only when the
-caller passes ``device="cpu"``.
+caller passes ``device="cpu"``. ``configure_card`` sets the process's
+CUDA math flags; the CLI (``run_nerf.main``) calls it before it builds
+anything on the card, and a program that builds a ``Trainer`` on the card
+itself calls it first.
 """
 
 from __future__ import annotations
@@ -20,6 +23,24 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run the plain versions on the CPU"
         )
     return dev
+
+
+def configure_card() -> None:
+    """The port's process-wide settings for CUDA math, set once before the
+    first matmul or convolution. TF32 off for matmul and cuDNN: the JAX
+    networks this port follows run plain f32 ``nn.Dense`` and ``nn.Conv``
+    (torch's default keeps cuDNN's TF32 on, which would run NeuralBody's
+    ``Conv3d`` stack at a 10-bit mantissa). cuDNN's algorithm search on, as
+    XLA autotunes its convolutions: cuDNN times its algorithms for each conv
+    shape once and keeps the fastest, where its heuristic picked f32
+    weight-gradient kernels ~2.9x slower for NeuralBody
+    (``tools/torch_conv_probe.py``). torch keeps a shape's plan however it
+    was chosen, so this comes before any convolution runs. With the search
+    on, two runs from one seed may pick different conv algorithms and differ
+    in the last bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
 
 
 def warm_cpu_math() -> None:
