@@ -213,7 +213,27 @@ Phases, each printed as one JSON line:
              ``novel_pose_bw_mlp.*`` moves, every other leaf bit for bit.
              Each of 26-28 prints one line, with 0 launches of the seven
              kernels (their counters zeroed before the path and read after).
-29. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+30. gnr    - ``configs/gnr/gnr_genebody.py``'s model at full width (4 source
+             views, 4 hourglass stacks of 256, 256 samples, the 8x256 MLP
+             with skips 2, 4, 6, attention, SMPL SDF, T-pose, SMPL depth,
+             visual hull; ``N_rand`` 1024) on ``gnr_arrays()``:
+             ``make_synthetic_genebody`` with 48 cameras at 512x512 and its
+             sphere made a closed latitude-longitude mesh with SMPL's 6,890
+             vertices and 13,776 triangles, so the brute-force SMPL queries
+             pay what a real capture pays. 20 steps and a resume to 22
+             (finite losses, moving parameters); a profiled step by group
+             (the mesh tile, GroupNorm, conv, SGEMM, grid sampling, the rest)
+             and its host syncs; ``nearest_points`` and ``inside_mesh``
+             alone at the step's 262,144 points; gradients card vs CPU on 64
+             rays (per leaf cosine > 0.999, norm ratio 0.999-1.001, no
+             gradient for the encoder's leaves on either side, the near-tie
+             points counted); the central 128x128 window of a held-out view
+             (16 chunks of 1,024 rays; the full frame's time derived as 256
+             chunks) and its 16x16 centre against the CPU (>= 40 dB on rgb
+             and acc); ``reconstruct_gnr`` at ``n_grid`` 64 with 3 smoothing
+             passes (seconds, vertices, faces, radial error against the
+             sphere). 0 launches of the seven kernels across the phase.
+31. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
              A line before it gives the script's total seconds.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
@@ -222,6 +242,7 @@ raises and the script exits non-zero; without a CUDA card it exits 2.
 
 from __future__ import annotations
 
+import bisect
 import json
 import math
 import os
@@ -1686,6 +1707,7 @@ KILO_STEPS, KILO_LOG = 40, 10
 KILO_RADIUS = 0.5  # inside the finetune config's domain, +-0.7
 KILO_OCC_RES, KILO_OCC_SUB, KILO_OCC_THRESHOLD = 256, 3, 10.0  # the JAX pipeline's sweep
 KILO_COS, KILO_RATIO = 0.999, (0.999, 1.001)  # both sides f32, TF32 off
+NULL_REL = 1e-5  # a gradient that is zero in exact arithmetic, against the largest entry of any gradient
 KILO_BUDGET_CHUNK = 32_768  # 1,048,576 slots: over the config's eval_budget, so the compaction runs
 # kernel groups of a KiloNeRF step's and frame's profiles (the rest is elementwise)
 KILO_GROUPS = {"bmm": ["gemm", "Gemm", "sm90_xmma", "cutlass", "ampere_", "sm80_", "gemv"],
@@ -1899,7 +1921,8 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
     def fitted(drv):
         return np.array([drv.lookup(c).params is not None for c in centres])
 
-    grid, config_fitted = driver.assemble_grid(res), fitted(driver)
+    config_fitted = fitted(driver)
+    grid = driver.assemble_grid(res) if config_fitted.any() else None  # it raises before any fit, as JAX's does
     # the hand-off into the finetune: two cycles of the config fit no node from a 42-step teacher, so the finetune
     # is seeded from one more cycle cut to 10 Adam steps with max_error 1e9, where every root fits
     handoff = DistillDriver(teacher_fn, dmin, dmax, device="cuda", **dict(short, max_error=1e9))
@@ -1909,7 +1932,8 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
         raise AssertionError(f"kilo_distill: the hand-off cycle left {int((~seed_cells).sum())} cells without a leaf")
     emit({"phase": "kilo_distill", "config": "configs/kilonerf/kilonerf_distill.py (tree)", "tree": tree,
           "cycles": cycles, "cut": "2 cycles of the run to termination", "fused_nerf_mlp_fwd_launches":
-          distill_launches, "assembled": {k: list(v.shape) for k, v in grid.items()},
+          distill_launches,
+          "assembled": {k: list(v.shape) for k, v in grid.items()} if grid is not None else "no fitted leaf",
           "cells_with_fitted_leaf": int(config_fitted.sum()),
           "handoff": {"cut": "1 cycle at 10 Adam steps, max_error 1e9", "networks": handoff.last_cycle["networks"],
                       "fitted": handoff.last_cycle["fitted"], "cells_with_fitted_leaf": int(seed_cells.sum())},
@@ -2352,11 +2376,15 @@ def train_f32(model_cfg, ds, optimizer, work_dir, what, steps=F32_STEPS, density
     return tr, rec.windows, ms_step, peak_gb
 
 
-def grads_f32(model_cfg, sd, batch, what):
+def grads_f32(model_cfg, sd, batch, what, null=()):
     """The card's loss gradients against the CPU's on one batch, deterministic
     path, same weights: per leaf cosine > 0.999 and norm ratio 0.999-1.001
     (f32 both sides, TF32 off), and a leaf that is zero on the CPU is zero
-    on the card; the worst leaf is printed."""
+    on the card; the worst leaf is printed. ``null`` names leaves whose
+    gradient is zero in exact arithmetic (GNR's ``nerf.value2.bias``: the
+    softmax cancels a shift common to every candidate), so both sides hold
+    rounding only: each must stay under ``NULL_REL`` of the largest entry of
+    any gradient, and takes no cosine."""
     from xrnerf_torch import build_network
 
     grads = {}
@@ -2368,16 +2396,25 @@ def grads_f32(model_cfg, sd, batch, what):
         loss.backward()
         grads[side] = {k: p.grad.detach().cpu() for k, p in net.named_parameters() if p.grad is not None}
         grads[side + "_loss"] = loss.item()
+        grads["without"] = sorted(k for k, p in net.named_parameters() if p.grad is None)
         del net
     if sorted(grads["card"]) != sorted(grads["cpu"]):
         raise AssertionError(f"{what}: the card and the CPU differ in which leaves have gradients")
-    nonzero = {k: v for k, v in grads["cpu"].items() if bool(v.any())}
-    stray = {k: float(v.abs().max()) for k, v in grads["card"].items() if k not in nonzero and bool(v.any())}
+    scale = max(float(v.abs().max()) for v in grads["cpu"].values())
+    nulls = {k: max(float(grads[side][k].abs().max()) for side in ("card", "cpu")) for k in null}
+    if any(m > NULL_REL * scale for m in nulls.values()):
+        raise AssertionError(f"{what}: a leaf that should hold rounding only {nulls}, largest entry {scale}")
+    nonzero = {k: v for k, v in grads["cpu"].items() if bool(v.any()) and k not in nulls}
+    stray = {k: float(v.abs().max()) for k, v in grads["card"].items()
+             if k not in nonzero and k not in nulls and bool(v.any())}
     if stray:
         raise AssertionError(f"{what}: zero on the CPU but not on the card (max |grad|): {stray}")
     per_leaf = check_leaves(what, {k: grads["card"][k] for k in nonzero}, nonzero, KILO_COS, KILO_RATIO)
     worst = min(per_leaf, key=lambda k: per_leaf[k]["cos"])
-    return {"rays": int(batch["rays_o"].shape[0]), "leaves": len(per_leaf), "loss_card": grads["card_loss"],
+    rays = batch["rays_o"] if "rays_o" in batch else batch["rays_s"]
+    return {"rays": int(rays.shape[0]), "leaves": len(per_leaf), "without_grad": grads["without"],
+            **({"null_leaves_max_abs": nulls, "largest_entry": scale} if nulls else {}),
+            "loss_card": grads["card_loss"],
             "loss_cpu": grads["cpu_loss"], "min_cos": per_leaf[worst]["cos"], "worst_leaf": worst,
             "ratio_range": [min(r["ratio"] for r in per_leaf.values()), max(r["ratio"] for r in per_leaf.values())]}
 
@@ -2591,6 +2628,280 @@ def human_phases(work_dir):
         lines.append(line)
     lines[0]["arrays_s"] = arrays_s
     return lines
+
+
+# 30. GNR: the config's full width on a rig with SMPL's mesh size
+GNR_RINGS, GNR_SEGMENTS = 84, 82  # a closed sphere of 84 * 82 + 2 = 6,890 vertices and 13,776 triangles, as SMPL's
+GNR_RADIUS = 0.3  # make_synthetic_genebody's sphere
+GNR_CAMS, GNR_SIZE = 48, 512  # GeneBody's 48 cameras (source views 1, 13, 25, 37 distinct) at load_size
+GNR_WINDOW, GNR_CROP = 128, 16  # a frame's central window (16 chunks of 1,024 rays) and its crop against the CPU
+GNR_GRID, GNR_LAPLACIAN = 64, 3
+GNR_GRAD_RAYS = 64  # card against CPU; the CPU's mesh tile stays short
+GNR_TIE_EPS = 1e-5  # |w - 0.5| under which a winding number's sign is a tie
+
+
+def latlong_sphere(radius=GNR_RADIUS, rings=GNR_RINGS, segments=GNR_SEGMENTS):
+    """A closed latitude-longitude sphere: ``rings`` rings of ``segments``
+    vertices between two poles, triangles facing outward -> (verts, faces)."""
+    th = np.pi * np.arange(1, rings + 1) / (rings + 1)
+    ph = 2 * np.pi * np.arange(segments) / segments
+    ring = np.stack([np.sin(th)[:, None] * np.cos(ph), np.sin(th)[:, None] * np.sin(ph),
+                     np.cos(th)[:, None] * np.ones_like(ph)], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0.0, 0.0, 1.0]], ring, [[0.0, 0.0, -1.0]]]) * radius
+    south = len(verts) - 1
+    idx = 1 + np.arange(rings * segments).reshape(rings, segments)
+    nxt = np.roll(idx, -1, axis=1)
+    faces = [np.stack([np.zeros(segments, np.int64), idx[0], nxt[0]], 1),
+             np.stack([np.full(segments, south), nxt[-1], idx[-1]], 1)]
+    for r in range(rings - 1):
+        faces += [np.stack([idx[r], idx[r + 1], nxt[r + 1]], 1), np.stack([idx[r], nxt[r + 1], nxt[r]], 1)]
+    faces = np.concatenate(faces)
+    a, b, c = (verts[faces[:, k]] for k in range(3))
+    if np.sum(a * np.cross(b, c)) < 0:  # signed volume: make the faces point outward
+        faces = faces[:, [0, 2, 1]]
+    return verts.astype(np.float32), faces.astype(np.int32)
+
+
+def gnr_arrays(n_frames=2, n_cams=GNR_CAMS, size=GNR_SIZE, seed=SEED):
+    """``make_synthetic_genebody`` with its 128-face icosphere replaced by
+    :func:`latlong_sphere` of the same radius (``smpl_verts`` per frame,
+    shifted as the maker shifts them, ``smpl_faces``, ``smpl_t_verts``)."""
+    from xrnerf_torch.datasets.load.synthetic import make_synthetic_genebody
+
+    arr = make_synthetic_genebody(n_frames=n_frames, n_cams=n_cams, H=size, W=size, radius=GNR_RADIUS, seed=seed)
+    v0, faces = latlong_sphere()
+    arr.update(smpl_verts=np.stack([v0 + 0.02 * f * np.array([1.0, 0, 0], np.float32) for f in range(n_frames)]),
+               smpl_faces=faces, smpl_t_verts=v0)
+    return arr
+
+
+class GnrRanges:
+    """Within the block, the GNR network's SMPL queries and the encoder's
+    GroupNorms run inside ``torch.profiler.record_function`` ranges, so a
+    profile reads their device time (the range's span on the card's
+    timeline); undone on exit. Only this script sets them."""
+
+    NAMES = ("gnr_nearest", "gnr_winding", "gnr_groupnorm")
+
+    def __enter__(self):
+        import xrnerf_torch.models.networks.gnr as net_mod
+        from xrnerf_torch.models.embedders.gnr_embedder import GroupNorm
+
+        def ranged(name, fn):
+            def inner(*a, **kw):
+                with torch.profiler.record_function(name):
+                    return fn(*a, **kw)
+            return inner
+
+        self._saved = (net_mod.nearest_points, net_mod.inside_mesh, GroupNorm.forward)
+        net_mod.nearest_points = ranged("gnr_nearest", net_mod.nearest_points)
+        net_mod.inside_mesh = ranged("gnr_winding", net_mod.inside_mesh)
+        GroupNorm.forward = ranged("gnr_groupnorm", GroupNorm.forward)
+        return self
+
+    def __exit__(self, *exc):
+        import xrnerf_torch.models.networks.gnr as net_mod
+        from xrnerf_torch.models.embedders.gnr_embedder import GroupNorm
+
+        net_mod.nearest_points, net_mod.inside_mesh, GroupNorm.forward = self._saved
+
+
+def gnr_profile(run, wall_ms, phase):
+    """``run()`` under torch.profiler (host and device): device time of the
+    mesh tile (nearest point and winding number), GroupNorm, conv, SGEMM,
+    grid sampling and the rest (elementwise), and the idle share against
+    ``wall_ms``, the unprofiled time of the same work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with GnrRanges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def self_ms(e):
+        return (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    on_card = [e for e in events if str(getattr(e, "device_type", "")).endswith("CUDA") and self_ms(e) > 0]
+    kernels = sorted(((e.key, self_ms(e), e.count) for e in on_card if e.key not in GnrRanges.NAMES),
+                     key=lambda r: -r[1])
+    # a range shows on the card's timeline as spans; each kernel that starts inside one counts for that range
+    timeline = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in timeline if e.name in GnrRanges.NAMES)
+    starts = [sp[0] for sp in spans]
+    ranges = dict.fromkeys(GnrRanges.NAMES, 0.0)
+    for e in timeline:
+        if e.name in GnrRanges.NAMES:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < spans[i][1]:
+            ranges[spans[i][2]] += (e.time_range.end - e.time_range.start) / 1e3
+    busy = sum(ms for _, ms, _ in kernels)
+    named = {"conv": is_conv, "sgemm": F32_GROUPS["gemm"], "grid_sample": lambda k: "grid_sampler" in k}
+    line = {"phase": phase, "profiled_wall_ms": prof_wall_ms, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms, "kernel_launches": sum(c for _, _, c in kernels),
+            "mesh_tile_ms": ranges["gnr_nearest"] + ranges["gnr_winding"], "nearest_ms": ranges["gnr_nearest"],
+            "winding_ms": ranges["gnr_winding"], "groupnorm_ms": ranges["gnr_groupnorm"]}
+    for label, match in named.items():
+        line[f"{label}_ms"] = sum(ms for k, ms, _ in kernels if match(k))
+    line["elementwise_ms"] = busy - sum(line[f"{g}_ms"] for g in ("mesh_tile", "groupnorm", *named))
+    for g in ("mesh_tile", "groupnorm", *named, "elementwise"):
+        line[f"{g}_share_of_busy"] = line[f"{g}_ms"] / busy if busy else 0.0
+    line["top"] = [{"name": k[:100], "ms": ms, "calls": c} for k, ms, c in kernels[:8]]
+    return line
+
+
+def gnr_ties(batch, n_samples, load_size, mesh_chunk):
+    """Sample points of ``batch`` (deterministic) inside the visual hull whose
+    nearest face on the card differs from the CPU's, or whose winding number
+    on the card is within ``GNR_TIE_EPS`` of 0.5: the near-ties."""
+    from xrnerf_torch.models.renders.gnr_render import sample_segment, visual_hull_mask
+    from xrnerf_torch.ops.mesh import nearest_points, winding_number
+
+    b = {k: torch.from_numpy(np.require(v, requirements="C")) for k, v in batch.items()}
+    flat = sample_segment(b["rays_s"], b["rays_e"], n_samples)[0].reshape(-1, 3)
+    keep = visual_hull_mask(flat, b["ctx_masks"][:4], b["ctx_calibs"][:4], b["ctx_persps"][:4], load_size, load_size)
+    verts, faces = b["ctx_smpl_verts"], b["ctx_smpl_faces"].long()
+    idx = {}
+    for dev in ("cuda", "cpu"):
+        idx[dev] = nearest_points(flat.to(dev), verts.to(dev), faces.to(dev), chunk=mesh_chunk)[1].cpu()
+    w = winding_number(flat.cuda(), verts.cuda(), faces.cuda(), chunk=mesh_chunk).cpu()
+    ties = keep & ((idx["cuda"] != idx["cpu"]) | ((w - 0.5).abs() <= GNR_TIE_EPS))
+    return int(ties.sum()), int(keep.sum())
+
+
+def gnr_phase(work_dir):
+    """GNR at the full width of ``configs/gnr/gnr_genebody.py`` on
+    ``gnr_arrays()``: 20 steps and a resume to 22, a profiled step by group,
+    the SMPL queries alone at a step's points, card-vs-CPU gradients on 64
+    rays, the central 128x128 window of a held-out 512x512 view (16 chunks)
+    and its 16x16 centre against the CPU, and ``reconstruct_gnr`` at
+    ``n_grid`` 64; 0 launches of the seven kernels across the phase."""
+    from xrnerf_torch import build_dataset, build_network, load_config
+    from xrnerf_torch.core.renderer import render_image
+    from xrnerf_torch.models.renders.gnr_render import reconstruct_gnr, sample_segment
+    from xrnerf_torch.ops.mesh import inside_mesh, nearest_points
+    from xrnerf_torch.utils.metrics import psnr
+
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0  # the phase starts here
+    arrays = gnr_arrays()
+    arrays_s = time.perf_counter() - t_phase
+    cfg = load_config(os.path.join(ROOT, "configs", "gnr", "gnr_genebody.py"), dataname="synthetic")
+    model_cfg, chunk = dict(cfg["model"]), int(cfg["eval_chunk"])
+    mesh_chunk = model_cfg.get("mesh_chunk", 2048)
+    ds = build_dataset(dict(cfg["data"], datadir=None, arrays=arrays))
+    if len(set(ds.input_views)) != 4:
+        raise AssertionError(f"gnr: source views {ds.input_views} are not four distinct views")
+    n_pts = ds.N_rand * model_cfg["n_samples"]
+
+    # training: 20 steps, a checkpoint, a resume to 22
+    tr, windows, ms_step, train_peak = train_f32(model_cfg, ds, cfg["optimizer"], os.path.join(work_dir, "gnr"),
+                                                 "gnr_train", eval_chunk=chunk)
+    tb = tr._put_batch(ds.train_batch(10_000))
+    prof = gnr_profile(lambda: tr.train_step(tb, 10_000), ms_step, "gnr_profile")
+    n_syncs, inside_ops = count_host_syncs(lambda: tr.train_step(tb, 10_001))
+    # the SMPL queries alone at the step's sample points
+    flat = sample_segment(tb["rays_s"], tb["rays_e"], model_cfg["n_samples"])[0].reshape(-1, 3)
+    verts, faces = tb["ctx_smpl_verts"], tb["ctx_smpl_faces"].long()
+    mesh = {"points": int(flat.shape[0]), "triangles": int(faces.shape[0]), "vertices": int(verts.shape[0]),
+            "mesh_chunk": mesh_chunk,
+            "nearest_ms": time_ms(lambda: nearest_points(flat, verts, faces, chunk=mesh_chunk), reps=3, warmup=1),
+            "inside_ms": time_ms(lambda: inside_mesh(flat, verts, faces, chunk=mesh_chunk), reps=3, warmup=1)}
+    mesh["share_of_step"] = (mesh["nearest_ms"] + mesh["inside_ms"]) / ms_step
+    mesh["pairs_per_s"] = 2 * mesh["points"] * mesh["triangles"] / ((mesh["nearest_ms"] + mesh["inside_ms"]) * 1e-3)
+    sd = {k: v.detach().cpu() for k, v in tr.network.state_dict().items()}
+    del tr, tb, flat
+    torch.cuda.empty_cache()
+
+    # gradients, card against CPU, on 64 rays (deterministic path)
+    gb = build_dataset(dict(cfg["data"], datadir=None, arrays=arrays, N_rand=GNR_GRAD_RAYS,
+                            seed=SEED + 1000)).train_batch(0)
+    grads = grads_f32(model_cfg, sd, gb, "gnr_grads", null=("nerf.value2.bias",))
+    encoder = sorted(k for k in sd if k.startswith("image_filter."))
+    if grads["without_grad"] != encoder:
+        raise AssertionError(f"gnr_grads: leaves without a gradient {grads['without_grad'][:4]}..., "
+                             f"expected the {len(encoder)} encoder leaves")
+    grads["without_grad"] = f"the {len(encoder)} encoder leaves (train_encoder=False)"
+    grads["near_tie_points"], grads["hull_points"] = gnr_ties(gb, model_cfg["n_samples"], model_cfg["load_size"],
+                                                              mesh_chunk)
+
+    # serving: the central 128x128 window of a held-out view, then its 16x16 centre on the CPU
+    pt = os.path.join(work_dir, "gnr_weights.pt")
+    torch.save(sd, pt)
+    rays, gt = ds.eval_item(0)
+    H, W = gt.shape[:2]
+
+    def window(n):
+        sl = slice(H // 2 - n // 2, H // 2 + n // 2)
+        return {k: v if k.startswith("ctx_") or np.ndim(v) == 0 else v.reshape(H, W, -1)[sl, sl].reshape(-1, v.shape[-1])
+                for k, v in rays.items()}
+
+    srv, out, win_ms, win_peak = frame_f32(model_cfg, ds, pt, [(window(32), 32, 32),
+                                                               (window(GNR_WINDOW), GNR_WINDOW, GNR_WINDOW)],
+                                           chunk, "gnr_window")
+    n_chunks = GNR_WINDOW * GNR_WINDOW // chunk
+    chunk_ms = win_ms / n_chunks
+    cprof = gnr_profile(lambda: srv.render_image(window(32), 32, 32), chunk_ms, "gnr_chunk_profile")
+    cpu_net = build_network(model_cfg, device="cpu")
+    cpu_net.load_state_dict(sd)
+    c0 = (GNR_WINDOW - GNR_CROP) // 2
+    t0 = time.perf_counter()
+    # one chunk of the crop's 256 rays (the config's 1,024 would pad it to four times the work)
+    cpu = render_image(cpu_net, window(GNR_CROP), GNR_CROP, GNR_CROP, chunk=GNR_CROP ** 2, keys=("rgb", "acc"))
+    vs_cpu = {"rgb_psnr_db": float(psnr(out["rgb"][c0:c0 + GNR_CROP, c0:c0 + GNR_CROP], cpu["rgb"])),
+              "acc_psnr_db": float(psnr(out["acc"][c0:c0 + GNR_CROP, c0:c0 + GNR_CROP], cpu["acc"])),
+              "cpu_acc_sq_mean": float((cpu["acc"] ** 2).mean()), "cpu_s": time.perf_counter() - t0,
+              "cpu_threads": torch.get_num_threads()}
+    if not (vs_cpu["rgb_psnr_db"] >= 40.0 and vs_cpu["acc_psnr_db"] >= 40.0 and vs_cpu["cpu_acc_sq_mean"] >= 1e-3):
+        raise AssertionError(f"gnr_window: card vs CPU on the 16x16 crop {vs_cpu} (bars: 40 dB on rgb and acc, "
+                             "CPU mean(acc^2) >= 1e-3)")
+    del cpu_net
+
+    # reconstruction through the network's density and colour queries, on the card
+    net = srv.eval_network
+    ctx = {k: torch.from_numpy(np.require(v, requirements="C")).cuda() for k, v in rays.items() if k.startswith("ctx_")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rverts, rfaces, rgbs = reconstruct_gnr(lambda p: net.query_density(ctx, p), lambda p, n: net.query_color(ctx, p, n),
+                                           center=rays["ctx_center"], spatial_freq=float(rays["ctx_spatial_freq"]),
+                                           load_size=model_cfg["load_size"], n_grid=GNR_GRID, laplacian=GNR_LAPLACIAN,
+                                           device="cuda")
+    recon_s = time.perf_counter() - t0
+    if len(rfaces) == 0 or not np.isfinite(rverts).all() or not np.isfinite(rgbs).all():
+        raise AssertionError(f"gnr_reconstruct: {len(rverts)} vertices, {len(rfaces)} faces")
+    centre = arrays["smpl_verts"][0].mean(0)
+    radial = np.abs(np.linalg.norm(rverts - centre, axis=-1) - GNR_RADIUS)
+    del srv, net, ctx
+    torch.cuda.empty_cache()
+    if launched_any(counters):  # the phase ends here
+        raise AssertionError(f"gnr launched hand-written kernels: {launched_any(counters)}")
+    return {"phase": "gnr", "config": "configs/gnr/gnr_genebody.py",
+            "rig": {"cams": GNR_CAMS, "size": GNR_SIZE, "source_views": list(ds.input_views),
+                    "smpl_vertices": int(len(arrays["smpl_t_verts"])), "smpl_triangles": int(len(arrays["smpl_faces"])),
+                    "arrays_s": arrays_s},
+            "N_rand": ds.N_rand, "n_samples": model_cfg["n_samples"], "steps": F32_STEPS, "resumed_to": F32_STEPS + 2,
+            "window_losses": [w["loss"] for w in windows], "window_ms_per_step": [w["ms_per_step"] for w in windows],
+            "ms_per_step": ms_step, "rays_per_s": ds.N_rand / (ms_step * 1e-3), "points_per_step": n_pts,
+            "device_busy_ms": prof["device_busy_ms"], "idle_share": prof["idle_share"],
+            "host_syncs_per_step": n_syncs, "syncs_inside": inside_ops, "profile": prof,
+            "train_peak_mem_gb": train_peak, "mesh": mesh, "grads": grads,
+            "window": {"H": GNR_WINDOW, "W": GNR_WINDOW, "of": [H, W], "eval_chunk": chunk, "chunks": n_chunks,
+                       "ms": win_ms, "ms_per_chunk": chunk_ms, "rays_per_s": GNR_WINDOW ** 2 / (win_ms * 1e-3),
+                       "derived_frame_s": H * W // chunk * chunk_ms * 1e-3, "peak_mem_gb": win_peak,
+                       "acc_mean": float(out["acc"].mean()), "vs_cpu": vs_cpu, "chunk_profile": cprof},
+            "reconstruction": {"n_grid": GNR_GRID, "density_points": GNR_GRID ** 3, "laplacian": GNR_LAPLACIAN,
+                               "seconds": recon_s, "vertices": int(len(rverts)), "faces": int(len(rfaces)),
+                               "radial_mae": float(radial.mean()), "radius": GNR_RADIUS},
+            "kernel_launches": 0,
+            "cuts": {"steps": f"{F32_STEPS} of the config's {cfg['max_iters']}",
+                     "frame": f"the central {GNR_WINDOW}x{GNR_WINDOW} of {H}x{W} (the full frame's time is derived)",
+                     "n_grid": f"{GNR_GRID} (the JAX driver's default is 128)"},
+            "seconds": time.perf_counter() - t_phase}
 
 
 def nerf_counters():
@@ -2807,12 +3118,14 @@ def main() -> int:
         emit(bungee_phase(work_dir))
         for line in human_phases(work_dir):
             emit(line)
+        # 30. GNR at full width (f32, none of the seven kernels)
+        emit(gnr_phase(work_dir))
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     check_card_flags("end")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
-    # 29. kernels
+    # 31. kernels
     k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
     keys = ("rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [

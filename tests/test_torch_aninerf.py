@@ -390,6 +390,50 @@ def test_novel_pose_trainer_matches_jax_trainer(datasets, train_pose_ckpt, tmp_p
             assert np.array_equal(want[k], loaded[k].numpy()) and torch.equal(p, loaded[k]), k
 
 
+def test_ema_of_frozen_leaves_matches_jax_trainer(datasets, train_pose_ckpt, tmp_path):
+    """``novel_pose`` with ``ema_decay`` 0.95 in both trainers from the same
+    weights: the EMA of every frozen leaf equals the JAX trainer's
+    ``_ema_update`` bit for bit, including the elements where the plain
+    fl(0.95 e) + fl(0.05 e) != e (XLA's fma(0.95, e, fl(0.05 e)) keeps e
+    there; an update in the plain form would fail here); the trained
+    leaves' EMA agrees at the f32 bar."""
+    from xrnerf_tpu.core.trainer import Trainer as JTrainer
+    from xrnerf_tpu.models.networks.aninerf import AniNeRFNetwork as JAN
+
+    class JDeterministic(JAN):
+        def __call__(self, batch, rng=None, train=False):
+            return super().__call__(batch, rng=None, train=train)
+
+    class Deterministic(AniNeRFNetwork):
+        def forward(self, batch, generator=None, train=False):
+            return super().forward(batch, None, train)
+
+    jds, ds = datasets
+    _, loaded = train_pose_ckpt
+    opt, d = dict(type="adam", lr=1e-3), 0.95
+    jtr = JTrainer(JDeterministic(**NET_KW, phase="novel_pose"), jds, optimizer=opt, work_dir=str(tmp_path / "jax"),
+                   max_iters=2, ckpt_interval=0, log_interval=2, ema_decay=d)
+    p0 = jax.tree_util.tree_map(jnp.asarray, jax_params_from_state_dict({k: v.numpy() for k, v in loaded.items()}))
+    jtr.state = jtr.state.replace(params=p0)
+    jtr.ema_params = jax.tree_util.tree_map(jnp.array, p0)
+    tr = Trainer(Deterministic(**NET_KW, phase="novel_pose"), ds, optimizer=opt, work_dir=str(tmp_path / "torch"),
+                 max_iters=2, ckpt_interval=0, log_interval=2, ema_decay=d, device="cpu")
+    tr.network.load_state_dict(loaded)
+    tr.ema_network.load_state_dict(loaded)
+    jtr.run()
+    tr.run()
+    want = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jtr.ema_params))
+    cases = 0
+    for k, e in tr.ema_network.state_dict().items():
+        if k.startswith("novel_pose_bw_mlp."):
+            np.testing.assert_allclose(e.numpy(), want[k], rtol=0, atol=1e-5, err_msg=k)
+            continue
+        x = loaded[k].numpy()
+        cases += int((np.float32(d) * x + np.float32(1 - d) * x != x).sum())  # the smallest case, elementwise
+        np.testing.assert_array_equal(e.numpy(), want[k], err_msg=k)
+    assert cases > 0
+
+
 # --- CLI ---
 
 

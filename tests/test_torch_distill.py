@@ -192,13 +192,17 @@ def test_assemble_grid_seeds_the_finetune_field(drivers):
 
 
 def test_assemble_grid_before_any_fit_is_zeros():
-    """A tree with no fitted leaf assembles all-zero cells of the field's shapes."""
+    """Before any node is fitted both drivers refuse to assemble: the same
+    ``RuntimeError("no fitted nodes")``, and neither tree has a fitted leaf."""
+    jdriver = jdistill.DistillDriver(_jteacher, **DRIVER_KW)
     driver = tdistill.DistillDriver(_tteacher, device="cpu", **DRIVER_KW)
-    grid = driver.assemble_grid((2, 2, 2))
-    want = GroupedMultiMLP(8, **driver.mlp_kw).state_dict()
-    assert sorted(grid) == sorted(want)
-    for k, v in grid.items():
-        assert v.shape == tuple(want[k].shape) and not v.any(), k
+    errors = []
+    for d in (jdriver, driver):
+        with pytest.raises(RuntimeError) as err:
+            d.assemble_grid((2, 2, 2))
+        errors.append(str(err.value))
+        assert all(d.lookup(np.float32(c)).params is None for c in ((-0.5, -0.5, -0.5), (0.5, 0.5, 0.5)))
+    assert errors == ["no fitted nodes"] * 2
 
 
 def test_student_fits_an_analytic_teacher():

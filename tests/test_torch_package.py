@@ -31,6 +31,11 @@ KILO_MODULES = (
     "ops.compaction", "models.fields.kilonerf_field", "models.networks.kilonerf", "datasets.kilonerf",
     "core.distill", "core.renderer", "core.trainer",
 )
+GNR_MODULES = (
+    "ops.mesh", "ops.marching", "native", "native.mesh_grid_searcher", "models.embedders.gnr_embedder",
+    "models.fields.gnr_mlp", "models.renders.gnr_render", "models.networks.gnr", "datasets.genebody",
+    "datasets.load.synthetic",
+)
 # the JAX package reads and resizes images with these; no module of the port imports them on import
 IMAGE_LIBS = {"cv2", "imageio"}
 
@@ -231,3 +236,48 @@ def test_kilo_entry_points_need_a_card_or_cpu():
     grid = build_occupancy_grid(lambda p: p[:, 0], (-1,) * 3, (1,) * 3, res=(2, 2, 2), subsamples=1,
                                 threshold=0.0, device="cpu")
     assert grid.tolist() == np.array([[[False] * 2] * 2, [[True] * 2] * 2]).tolist()
+
+
+@pytest.mark.parametrize("module", GNR_MODULES)
+def test_gnr_module_stands_alone(module):
+    """Each GNR module (and the native mesh searcher's binding) is among the
+    checked sources and imports neither JAX nor the JAX package."""
+    path = os.path.join(PORT, *module.split("."))
+    path = os.path.join(path, "__init__.py") if os.path.isdir(path) else path + ".py"
+    assert path in _port_sources()
+    test_source_imports_nothing_of_jax(path)
+
+
+def test_gnr_modules_import_no_image_libs_and_build_nothing():
+    """Importing them leaves JAX, the JAX package, ``cv2`` and ``imageio``
+    out of ``sys.modules``, and builds no native library."""
+    mods = [f"xrnerf_torch.{m}" for m in GNR_MODULES]
+    code = (
+        "import importlib, json, sys\n"
+        "import xrnerf_torch.native as native\n"
+        "built = native.lib_path().exists()\n"
+        f"for m in ['xrnerf_torch'] + {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert native._lib is None and native.lib_path().exists() == built\n"
+        f"print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN | IMAGE_LIBS)!r})))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_gnr_entry_points_need_a_card_or_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; the refusal is for hosts without one")
+    from xrnerf_torch import DATASETS, NETWORKS, build_network
+
+    assert "GnrNetwork" in NETWORKS and "GeneBodyDataset" in DATASETS
+    cfg = dict(type="GnrNetwork", n_samples=4, load_size=32, num_stack=1, num_hourglass=1, hourglass_dim=8,
+               mlp_depth=2, mlp_width=16, skips=(0,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_network(cfg)
+    net = build_network(cfg, device="cpu")
+    assert next(net.parameters()).device.type == "cpu"

@@ -32,10 +32,10 @@ warm_cpu_math()
 
 def _register_all():
     """Import modules for registry side effects."""
-    from .datasets import aninerf, bungee, hashnerf, kilonerf, multiscale, neuralbody, scene  # noqa: F401
+    from .datasets import aninerf, bungee, genebody, hashnerf, kilonerf, multiscale, neuralbody, scene  # noqa: F401
     from .models.networks import aninerf as _aninerf_net, bungeenerf  # noqa: F401
     from .models.networks import hashnerf as _hashnerf_net, kilonerf as _kilonerf_net, mipnerf, nerf  # noqa: F401
-    from .models.networks import neuralbody as _neuralbody_net  # noqa: F401
+    from .models.networks import gnr as _gnr_net, neuralbody as _neuralbody_net  # noqa: F401
     from .core import hooks  # noqa: F401
 
 

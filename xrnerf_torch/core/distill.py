@@ -311,14 +311,11 @@ class DistillDriver:
         """Fitted per-node weights stacked onto a uniform [prod(res)]-network
         grid for the finetune field: each cell centre looks up its leaf;
         cells without a fitted leaf get zeros. Keys are the field's leaf
-        names, sorted. Before any node is fitted every cell is zeros (the
-        JAX driver raises there instead)."""
+        names, sorted. Call it after a fit: before any node is fitted it
+        raises ``RuntimeError("no fitted nodes")``, as the JAX driver does."""
         res = np.asarray(resolution)
         cell = (self.dmax - self.dmin) / res
         example = self._example_params()
-        if example is None:
-            example = {k: np.zeros(v.shape[1:], np.float32)
-                       for k, v in GroupedMultiMLP(1, **self.mlp_kw).state_dict().items()}
         names = sorted(example)
         stacked: Dict[str, list] = {m: [] for m in names}
         for i in range(res[0]):
@@ -330,7 +327,7 @@ class DistillDriver:
                         stacked[m].append(p[m] if p is not None else np.zeros_like(example[m]))
         return {m: np.stack(v) for m, v in stacked.items()}
 
-    def _example_params(self) -> Optional[Dict[str, np.ndarray]]:
+    def _example_params(self) -> Dict[str, np.ndarray]:
         for root in self.cp["root_nodes"]:
             stack = [root]
             while stack:
@@ -339,4 +336,4 @@ class DistillDriver:
                     return n.params
                 if n.leq_child is not None:
                     stack += [n.leq_child, n.gt_child]
-        return None
+        raise RuntimeError("no fitted nodes")

@@ -31,10 +31,11 @@ step's loss (logged as ``param_reg``).
 
 A network whose ``trainable_filter()`` returns a predicate on the dotted
 state-dict names (AniNeRF's ``novel_pose``: ``"novel_pose_bw_mlp" in
-name``) trains only the parameters that pass it: the optimizer, the
-``grad_clip`` norm and the EMA cover those alone, and the others get
+name``) trains only the parameters that pass it: the optimizer and the
+``grad_clip`` norm cover those alone, and the others get
 ``requires_grad_(False)``, so they take no update, as the JAX trainer's
-``optax.set_to_zero`` branch gives them none. The mesh protocol
+``optax.set_to_zero`` branch gives them none. The EMA averages every
+parameter, frozen ones too, as the JAX trainer's ``_ema_update`` does. The mesh protocol
 (multi-GPU) comes with its slice.
 
 The Trainer sets no process-wide flag: on the card, call
@@ -219,8 +220,11 @@ class Trainer:
         d = self.ema_decay
         with torch.no_grad():
             for e, p in zip(self.ema_network.parameters(), self.network.parameters()):
-                if p.requires_grad:  # a frozen parameter's average is itself
-                    e.mul_(d).add_(p, alpha=1 - d)
+                # every leaf, frozen ones too, in the JAX trainer's form: XLA contracts
+                # ``d * e + (1 - d) * p`` to fma(d, e, fl((1 - d) p)), and add's alpha
+                # is that fma (a frozen leaf then keeps its bits, where the plain
+                # fl(d e) + fl((1 - d) e) can move it by an ulp)
+                torch.add(p.mul(1 - d), e, alpha=d, out=e)
 
     def _sync_ema_buffers(self) -> None:
         """The EMA copy averages parameters only; its buffers (the occupancy

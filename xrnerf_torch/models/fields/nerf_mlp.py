@@ -33,14 +33,15 @@ _TRUNC_STD = 0.87962566103423978
 
 def lecun_normal_(layer: nn.Module, generator: Optional[torch.Generator]) -> None:
     """flax ``Dense`` / ``Conv`` init: lecun-normal (truncated) kernel over
-    the fan-in (``in`` for a ``Linear``, ``in * kd * kh * kw`` for a
-    ``Conv3d``), zero bias."""
+    the fan-in (``in`` for a ``Linear``, ``in * kh * kw`` or
+    ``in * kd * kh * kw`` for a conv), zero bias where there is one."""
     std = math.sqrt(1.0 / layer.weight[0].numel()) / _TRUNC_STD
     w = torch.empty(layer.weight.shape, dtype=torch.float32)
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
     with torch.no_grad():
         layer.weight.copy_(w)
-        layer.bias.zero_()
+        if layer.bias is not None:
+            layer.bias.zero_()
 
 
 def embed_normal_(embedding: nn.Embedding, generator: Optional[torch.Generator]) -> None:
@@ -52,10 +53,10 @@ def embed_normal_(embedding: nn.Embedding, generator: Optional[torch.Generator])
 
 
 def flax_init_(module: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """flax's initialisation for every ``Linear``, ``Conv3d`` and
+    """flax's initialisation for every ``Linear``, ``Conv2d``, ``Conv3d`` and
     ``Embedding`` under ``module``, in registration order."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv3d)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
             lecun_normal_(m, generator)
         elif isinstance(m, nn.Embedding):
             embed_normal_(m, generator)

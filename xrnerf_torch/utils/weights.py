@@ -20,6 +20,13 @@ numpy only. A flax ``nn.Dense`` leaf is ``{"kernel": [din, dout], "bias":
 - a flax ``nn.Conv`` kernel ``[kd, kh, kw, in, out]`` is a ``Conv3d``
   ``weight`` ``[out, in, kd, kh, kw]`` (``transpose(4, 3, 0, 1, 2)``; a
   plain ``.T`` would reverse the spatial axes too), its bias ``bias``;
+- a flax 2-D ``nn.Conv`` kernel ``[kh, kw, in, out]`` is a ``Conv2d``
+  ``weight`` ``[out, in, kh, kw]`` (``transpose(3, 2, 0, 1)``, back
+  ``(2, 3, 1, 0)``); a conv without a bias (GNR's ``ConvBlock``) has no
+  ``bias`` entry on either side;
+- a flax ``nn.GroupNorm`` ``{"scale", "bias"}`` is GNR's ``GroupNorm``
+  module, whose parameters are named ``scale`` and ``bias`` too; GNRMLP's
+  bare ``s`` leaf is copied as it is;
 - a flax ``nn.Embed`` ``{"embedding": [n, d]}`` is an ``nn.Embedding``
   ``weight`` [n, d]. Going back, a 2-D ``weight`` with no ``bias`` beside it
   is an ``Embed`` table (every ``Linear`` of the port has a bias).
@@ -45,6 +52,9 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 
 _GRID_KEYS = ("grid_density", "grid_bitfield", "occupancy")
+# flax conv kernel [k..., in, out] <-> torch weight [out, in, k...], by the kernel's rank
+_CONV_TO = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1)}
+_CONV_BACK = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0)}
 
 
 def state_dict_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -60,9 +70,10 @@ def state_dict_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str
             out[key] = np.array(sub, np.float32)
         elif "kernel" in sub:
             kernel = np.asarray(sub["kernel"])
-            kernel = kernel.transpose(4, 3, 0, 1, 2) if kernel.ndim == 5 else kernel.T
+            kernel = kernel.transpose(_CONV_TO[kernel.ndim]) if kernel.ndim in _CONV_TO else kernel.T
             out[f"{key}.weight"] = np.array(kernel, np.float32, order="C")
-            out[f"{key}.bias"] = np.array(sub["bias"], np.float32)
+            if "bias" in sub:
+                out[f"{key}.bias"] = np.array(sub["bias"], np.float32)
         elif set(sub) == {"embedding"}:
             out[f"{key}.weight"] = np.array(sub["embedding"], np.float32)
         else:
@@ -84,8 +95,8 @@ def jax_params_from_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
         for p in path:
             node = node.setdefault(f"layers_{p}" if p.isdigit() else p, {})
         arr = np.asarray(val)
-        if leaf == "weight" and arr.ndim == 5:
-            node["kernel"] = np.array(arr.transpose(2, 3, 4, 1, 0), np.float32, order="C")
+        if leaf == "weight" and arr.ndim in (4, 5):
+            node["kernel"] = np.array(arr.transpose(_CONV_BACK[arr.ndim]), np.float32, order="C")
         elif leaf == "weight" and key[: -len("weight")] + "bias" not in state_dict:
             node["embedding"] = np.array(arr, np.float32)
         elif leaf == "weight":
