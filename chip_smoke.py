@@ -233,7 +233,27 @@ Phases, each printed as one JSON line:
              and acc); ``reconstruct_gnr`` at ``n_grid`` 64 with 3 smoothing
              passes (seconds, vertices, faces, radial error against the
              sphere). 0 launches of the seven kernels across the phase.
-31. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+31. multi  - ``xrnerf_torch.parallel`` at the full widths of vanilla NeRF
+             (fused, ``N_rand`` 4096 global), Instant-NGP (fused, ``N_rand``
+             16,384 global, so the sample budget binds) and KiloNeRF (4096
+             networks, ``N_rand`` 1024 global): a one-rank NCCL group through
+             ``init_distributed`` trains vanilla NeRF with a mesh; then two
+             worker processes (``python3 chip_smoke.py --multi-worker ...``)
+             share ``cuda:0`` over gloo (``"backend"``, ``"ranks_per_card"``):
+             4 data-parallel steps of each configuration against the one-rank
+             run (losses at 1e-5 relative, first-step gradients per leaf
+             cosine > 0.999 and norm ratio 0.999-1.001, f32 all-reduce),
+             KiloNeRF's capacity mask and Instant-NGP's budget mask bit for
+             bit, one n_model 2 step of Instant-NGP and KiloNeRF (the table and
+             the expert stacks cut in two; the table's gradient through row 7's
+             slice scatter), an 800x800 vanilla frame split over the ranks
+             against the one-rank frame (>= 40 dB), launches per rank of the
+             seven counters; row 7's slice scatter against the full-table
+             launch (``SCATTER_RTOL``); all-reduce bytes per step; ms/step of
+             two ranks sharing one card (not a scaling figure). With two or
+             more cards, also NCCL with one rank per card: the same checks
+             (and, for an even count, the n_model 2 step), untimed.
+32. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
              A line before it gives the script's total seconds.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
@@ -2903,6 +2923,390 @@ def gnr_phase(work_dir):
                      "n_grid": f"{GNR_GRID} (the JAX driver's default is 128)"},
             "seconds": time.perf_counter() - t_phase}
 
+# --- 31. multi: data and model axes over torch.distributed ------------------------------
+
+MULTI_STEPS = 4  # data-parallel steps per configuration; ms/step is the median of steps 2-4
+MULTI_NGP_RAND, MULTI_KILO_RAND = 16_384, 1024  # global; NGP: 1,048,576 kept samples against the budget of 2^18
+MULTI_COS, MULTI_RATIO = 0.999, (0.999, 1.001)  # f32 sums in another order
+MULTI_LOSS_RTOL = 1e-5
+MULTI_TIMEOUT_S = 300
+
+
+class HostRows:
+    """A host's rows of a scene's global batch (``train_batch(step, host_id,
+    num_hosts)``), as the datasets give each data rank its part; other
+    attributes (cameras for ``init_aux``) are the scene's."""
+
+    def __init__(self, scene, n_hosts=1):
+        self.scene, self.N_rand = scene, scene.N_rand // n_hosts
+
+    def train_batch(self, step, host_id=0, num_hosts=1):
+        from xrnerf_torch.parallel.mesh import shard_batch
+
+        return shard_batch(self.scene.train_batch(step), host_id, num_hosts)
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["scene"], name)
+
+
+def multi_cases(work_dir):
+    """{name: (model config, optimizer, scene, Trainer keywords)} at full width."""
+    from xrnerf_torch import load_config
+
+    nerf = load_config(os.path.join(ROOT, "configs", "nerf", "nerf_blender.py"), dataname="lego")
+    ngp = load_config(os.path.join(ROOT, "configs", "instant_ngp", "ngp_blender.py"), dataname="lego")
+    kilo = load_config(os.path.join(ROOT, "configs", "kilonerf", "kilonerf_finetune.py"), dataname="lego")
+    return {
+        "nerf": (dict(nerf["model"], fused=True), nerf["optimizer"],
+                 SphereScene(N_RAND, nerf["data"]["near"], nerf["data"]["far"]), {}),
+        "ngp": (dict(ngp["model"], fused=True), ngp["optimizer"], NGPSphereScene(MULTI_NGP_RAND),
+                {"ema_decay": ngp["ema_decay"]}),
+        "kilo": (dict(kilo["model"], occupancy_path=os.path.join(work_dir, "occupancy.npy")), kilo["optimizer"],
+                 KiloSphereScene(MULTI_KILO_RAND, kilo["data"]["near"], kilo["data"]["far"]), {}),
+    }
+
+
+class StepClock:
+    """Hook: the host time of each step, the card synchronised at each end;
+    the first step's gradients (after the all-reduce) and every step's loss."""
+
+    def __init__(self):
+        self.t, self.losses, self.grads = [time.perf_counter()], [], None
+
+    def on_run_begin(self, tr): ...
+
+    def on_eval(self, tr, step): ...
+
+    def on_run_end(self, tr): ...
+
+    def after_step(self, tr, step, logs):
+        torch.cuda.synchronize()
+        self.t.append(time.perf_counter())
+        self.losses.append(float(logs["loss"]))
+        if self.grads is None:
+            self.grads = {n: p.grad.detach().clone() for n, p in tr.network.named_parameters() if p.grad is not None}
+
+
+def multi_train(case, work_dir, mesh, steps):
+    """Train one configuration from its seed; returns (trainer, clock, launches
+    of the seven kernels on this run)."""
+    from xrnerf_torch import build_network
+    from xrnerf_torch.core.trainer import Trainer
+
+    model_cfg, opt, scene, kw = multi_cases(work_dir)[case]
+    counters = kernel_counters()
+    clock = StepClock()
+    tr = Trainer(build_network(model_cfg, device="cuda"), HostRows(scene, mesh.data_size if mesh else 1),
+                 optimizer=opt, work_dir=None, max_iters=steps, log_interval=steps, ckpt_interval=0, seed=SEED,
+                 hooks=[clock], device=torch.cuda.current_device(), mesh=mesh, **kw)
+    for f in counters.values():
+        f.launches = 0  # the main path starts here
+    torch.cuda.synchronize()
+    clock.t = [time.perf_counter()]
+    if tr.run() != steps:
+        raise AssertionError(f"multi {case}: stopped early")
+    launches = {k: f.launches for k, f in counters.items()}  # and ends here
+    if not all(math.isfinite(x) for x in clock.losses):
+        raise AssertionError(f"multi {case}: losses {clock.losses}")
+    return tr, clock, launches
+
+
+def multi_frame_rays():
+    cfg_near, cfg_far = 2.0, 6.0  # configs/nerf/nerf_blender.py
+    scene = KiloSphereScene(1, cfg_near, cfg_far)
+    from xrnerf_torch.datasets.rays import spherical_render_poses
+
+    return scene.image_rays(spherical_render_poses(40, phi=-30.0, radius=4.0)[8])
+
+
+def multi_masks(work_dir, rows):
+    """KiloNeRF's capacity mask over a step's 1,024 x 384 points in 4096
+    networks and Instant-NGP's budget mask over 16,384 x 64 samples, seeded,
+    this data rank's rows (one rank: all)."""
+    from xrnerf_torch import build_network
+    from xrnerf_torch.models.fields.kilonerf_field import moe_dispatch
+
+    cases = multi_cases(work_dir)
+    d, D = (rows.rank, rows.size) if rows is not None else (0, 1)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b, n_nets = MULTI_KILO_RAND * 384, 4096
+    net_idx = torch.randint(0, n_nets, (b,), generator=g, device="cuda") // 3  # crowded networks: drops
+    net_idx = torch.where(torch.rand(b, generator=g, device="cuda") < 0.3, -1, net_idx).to(torch.int32)
+    cap = max(8, int(1.25 * b / n_nets))
+    part = net_idx.reshape(D, -1)[d]
+    _, keep, order = moe_dispatch(part, n_nets, cap, rows) if rows is not None else moe_dispatch(part, n_nets, cap)
+    kilo = torch.zeros_like(keep).index_put((order,), keep)
+    live = (torch.rand(MULTI_NGP_RAND * 64, generator=g, device="cuda") < 0.3).reshape(D, -1)[d]
+    net = build_network(cases["ngp"][0], device="cuda")
+    sel, slot = net.budget_slots(live, rows)
+    return {"kilo": kilo.cpu(), "ngp": (live & (slot < sel.shape[0])).cpu()}
+
+
+def multi_worker(rank, world, port, out_dir, backend) -> int:
+    """One rank of the multi phase (``--multi-worker``): data-parallel runs of
+    the three configurations, the frame, the masks, and (an even world)
+    n_model 2 steps; results to ``out_dir/rank{rank}.pt``."""
+    sys.path.insert(0, ROOT)
+    from xrnerf_torch.parallel import mesh as pm
+    from xrnerf_torch.utils.device import configure_card
+
+    configure_card()
+    torch.cuda.set_device(0 if backend == "gloo" else rank)
+    pm.init_distributed(f"tcp://127.0.0.1:{port}", backend=backend, world_size=world, rank=rank)
+    dp = pm.make_mesh(n_model=1)
+    res = {"losses": {}, "grads": {}, "ms_per_step": {}, "launches": {}, "allreduce_bytes": {}}
+    frame = None
+    for case in ("nerf", "ngp", "kilo"):
+        tr, clock, launches = multi_train(case, out_dir, dp, MULTI_STEPS)
+        res["losses"][case], res["launches"][case] = clock.losses, launches
+        res["ms_per_step"][case] = 1e3 * float(np.median(np.diff(clock.t)[1:]))
+        res["allreduce_bytes"][case] = 4 * sum(p.numel() for p in tr.trained_params)
+        if rank == 0:
+            res["grads"][case] = {k: v.cpu() for k, v in clock.grads.items()}
+        if case == "nerf":
+            fresh, _, _ = multi_train(case, out_dir, dp, 0)  # the seeded weights, as the one-rank frame's
+            rays = multi_frame_rays()
+            fwd = kernel_counters()["fused_nerf_mlp_fwd"]
+            fwd.launches = 0
+            frame = fresh.render_image(rays, 800, 800)["rgb"]
+            res["frame_launches"] = fwd.launches
+            del fresh
+        del tr, clock
+        torch.cuda.empty_cache()
+    res["frame"] = torch.from_numpy(frame) if rank == 0 else None
+    res["masks"] = multi_masks(out_dir, dp.rows)
+    if world % 2 == 0:  # the model axis: data rank d's two ranks hold half the table / expert stacks each
+        mp = pm.make_mesh(n_model=2)
+        res["model_axis"] = {}
+        for case in ("ngp", "kilo"):
+            tr, clock, launches = multi_train(case, out_dir, mp, 1)
+            res["model_axis"][case] = {"loss": clock.losses[0], "launches": launches, "sharded": dict(tr.sharded),
+                                       "grads": {k: v.cpu() for k, v in clock.grads.items()},
+                                       "ms": 1e3 * float(np.diff(clock.t)[0])}
+            del tr, clock
+            torch.cuda.empty_cache()
+    if "jax" in sys.modules or any(m.startswith("xrnerf_tpu") for m in sys.modules):
+        raise AssertionError("a multi worker imported JAX")
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def multi_spawn(world, out_dir, backend):
+    """Start ``world`` worker ranks and wait; raises on a failed rank."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    logs = [os.path.join(out_dir, f"{backend}_rank{r}.log") for r in range(world)]
+    procs = []
+    try:
+        for r, log in enumerate(logs):  # output to files: a full pipe would stall a rank inside a collective
+            with open(log, "w") as fh:
+                procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multi-worker", str(r),
+                                               str(world), str(port), out_dir, backend], env=env, stdout=fh,
+                                              stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + MULTI_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(log) as fh:
+                raise AssertionError(f"multi worker {r}/{world} ({backend}) exited {p.returncode}\n{fh.read()[-6000:]}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def multi_grads(what, got, want):
+    """Per leaf cosine and norm ratio of ``got`` against ``want`` (on the
+    card); returns (min cosine, worst ratio)."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: leaves {sorted(got)} != {sorted(want)}")
+    worst_cos, worst_ratio = 1.0, 1.0
+    for k, w in want.items():
+        a, b = got[k].cuda().double().flatten(), w.cuda().double().flatten()
+        na, nb = float(a.norm()), float(b.norm())
+        if nb == 0:
+            if na != 0:
+                raise AssertionError(f"{what} {k}: a gradient where the one-rank run has none")
+            continue
+        cos, ratio = float(a @ b) / (na * nb), na / nb
+        if not (cos > MULTI_COS and MULTI_RATIO[0] < ratio < MULTI_RATIO[1]):
+            raise AssertionError(f"{what} {k}: cosine {cos}, norm ratio {ratio}")
+        worst_cos, worst_ratio = min(worst_cos, cos), ratio if abs(ratio - 1) > abs(worst_ratio - 1) else worst_ratio
+    return worst_cos, worst_ratio
+
+
+def multi_losses(what, got, want):
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if len(got) != len(want) or not err <= MULTI_LOSS_RTOL:
+        raise AssertionError(f"{what}: losses {got} against the one-rank run's {want}")
+    return err
+
+
+def multi_compare(ranks, ref, ref_masks, ref_frame, timed):
+    """The multi-rank runs of ``multi_worker`` against the one-rank runs:
+    losses, first-step gradients, launches per rank, the masks, the split
+    frame and (an even world) the n_model 2 step; ``timed`` adds ms/step."""
+    from xrnerf_torch.utils.metrics import psnr
+
+    D = len(ranks)
+    out = {"data_axis": {}}
+    for case in ("nerf", "ngp", "kilo"):
+        for r in ranks:  # each rank launches what the one-rank run launches: the same kernels on its rows
+            if r["launches"][case] != ref[case]["launches"]:
+                raise AssertionError(f"multi {case}: launches {r['launches'][case]} vs one rank's {ref[case]['launches']}")
+        out["data_axis"][case] = {
+            "loss_rel_err": max(multi_losses(f"{case} rank {i}", r["losses"][case], ref[case]["losses"])
+                                for i, r in enumerate(ranks)),
+            "min_cos_ratio": multi_grads(f"multi {case}", ranks[0]["grads"][case], ref[case]["grads"]),
+            "allreduce_bytes": ranks[0]["allreduce_bytes"][case],
+            "launches_per_rank": [{k: v for k, v in r["launches"][case].items() if v} for r in ranks]}
+        if timed:
+            out["data_axis"][case]["ms_per_step_two_ranks_one_card"] = [r["ms_per_step"][case] for r in ranks]
+    for which in ("kilo", "ngp"):
+        got = torch.cat([r["masks"][which] for r in ranks])
+        if not torch.equal(got, ref_masks[which]):
+            raise AssertionError(f"multi: the {which} mask of {D} ranks differs from one rank's in "
+                                 f"{int((got != ref_masks[which]).sum())} places")
+    out["masks_bit_equal"] = {"kilo_kept": int(ref_masks["kilo"].sum()), "kilo_points": ref_masks["kilo"].numel(),
+                              "ngp_kept": int(ref_masks["ngp"].sum()), "ngp_samples": ref_masks["ngp"].numel()}
+    n_chunks = math.ceil(800 * 800 / 8192)  # the Trainer's default eval_chunk; coarse + fine per chunk
+    if any(r["frame_launches"] != 2 * math.ceil(n_chunks / D) for r in ranks):
+        raise AssertionError(f"multi: frame launches {[r['frame_launches'] for r in ranks]} on {D} ranks: "
+                             f"chunks not shared out round-robin")
+    frame = ranks[0]["frame"].numpy()
+    frame_db = float(psnr(frame, ref_frame))
+    if not (frame_db >= 40.0 and np.isfinite(frame).all()):
+        raise AssertionError(f"multi: the {D}-rank 800x800 frame is {frame_db} dB from the one-rank frame")
+    out["frame"] = {"H": 800, "W": 800, "psnr_db_vs_one_rank": frame_db,
+                    "identical": bool(np.array_equal(frame, ref_frame)),
+                    "fused_nerf_mlp_fwd_launches_per_rank": [r["frame_launches"] for r in ranks]}
+    if "model_axis" in ranks[0]:
+        out["model_axis"] = {}
+        for case in ("ngp", "kilo"):
+            parts = [r["model_axis"][case] for r in ranks[:2]]  # data rank 0's model group
+            dims = parts[0]["sharded"]
+            grads = {k: torch.cat([p["grads"][k] for p in parts], dim=dims[k]) if k in dims else parts[0]["grads"][k]
+                     for k in parts[0]["grads"]}
+            out["model_axis"][case] = {
+                "sharded": dims, "min_cos_ratio": multi_grads(f"model axis {case}", grads, ref[case]["grads"]),
+                "loss_rel_err": max(multi_losses(f"model axis {case}", [r["model_axis"][case]["loss"]],
+                                                 ref[case]["losses"][:1]) for r in ranks),
+                "launches_per_rank": [{k: v for k, v in r["model_axis"][case]["launches"].items() if v}
+                                      for r in ranks]}
+            if timed:
+                out["model_axis"][case]["ms_step_two_ranks_one_card"] = [p["ms"] for p in parts]
+        if not all(r["model_axis"]["ngp"]["launches"].get("scatter_add_rows", 0) == 1 for r in ranks):
+            raise AssertionError("multi: the model-axis NGP step did not scatter its table slice through row 7")
+    return out
+
+
+def multi_phase(work_dir):
+    """31. The port's data and model axes on the card (see the module notes)."""
+    from xrnerf_torch.ops.scatter_rows import scatter_add_rows_levels, shard_rows
+    from xrnerf_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    cases = multi_cases(work_dir)
+    kilo_cfg = cases["kilo"][0]
+    np.save(kilo_cfg["occupancy_path"],
+            KiloSphereScene.occupancy(128, kilo_cfg["domain_min"], kilo_cfg["domain_max"]))
+    line = {"phase": "multi", "note": "two ranks share one card: not a scaling figure", "backend": "gloo",
+            "ranks_per_card": 2, "steps": MULTI_STEPS, "N_rand_global": {"nerf": N_RAND, "ngp": MULTI_NGP_RAND,
+                                                                        "kilo": MULTI_KILO_RAND}}
+
+    # the one-rank runs every multi-rank run is held to
+    ref = {}
+    for case in ("nerf", "ngp", "kilo"):
+        tr, clock, launches = multi_train(case, work_dir, None, MULTI_STEPS)
+        ref[case] = {"losses": clock.losses, "grads": clock.grads, "launches": launches,
+                     "ms_per_step": 1e3 * float(np.median(np.diff(clock.t)[1:])),
+                     "allreduce_bytes": 4 * sum(p.numel() for p in tr.trained_params)}
+        if case == "nerf":
+            fresh, _, _ = multi_train(case, work_dir, None, 0)
+            fwd = kernel_counters()["fused_nerf_mlp_fwd"]
+            fwd.launches = 0
+            ref_frame = fresh.render_image(multi_frame_rays(), 800, 800)["rgb"]
+            ref_frame_launches = fwd.launches
+            del fresh
+        del tr, clock
+        torch.cuda.empty_cache()
+    ref_masks = multi_masks(work_dir, None)
+    line["allreduce_bytes_per_step"] = {c: r["allreduce_bytes"] for c, r in ref.items()}
+    line["one_rank_ms_per_step"] = {c: r["ms_per_step"] for c, r in ref.items()}
+
+    # a one-rank NCCL group: the set-up and the mesh's code path with NCCL's collectives
+    sock = __import__("socket").socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    pm.init_distributed(f"tcp://127.0.0.1:{port}", backend="nccl", world_size=1, rank=0)
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError(f"backend {torch.distributed.get_backend()}")
+        tr, clock, nccl_launches = multi_train("nerf", work_dir, pm.make_mesh(n_model=1), MULTI_STEPS)
+        line["nccl_one_rank"] = {"config": "nerf", "loss_rel_err": multi_losses("nccl nerf", clock.losses,
+                                                                                ref["nerf"]["losses"]),
+                                 "min_cos_ratio": multi_grads("nccl nerf", clock.grads, ref["nerf"]["grads"]),
+                                 "launches": {k: v for k, v in nccl_launches.items() if v}}
+        del tr, clock
+    finally:
+        torch.distributed.destroy_process_group()
+
+    want = {"nerf": {"fused_nerf_mlp_fwd": 2 * MULTI_STEPS, "fused_nerf_mlp_bwd": 2 * MULTI_STEPS}, "kilo": {},
+            # per step one launch of each tiny MLP and one scatter, one more fused_mlp2 for the step-0 refresh
+            "ngp": {"fused_mlp2_fwd": MULTI_STEPS + 1, "fused_mlp2_bwd": MULTI_STEPS, "fused_mlp3_fwd": MULTI_STEPS,
+                    "fused_mlp3_bwd": MULTI_STEPS, "scatter_add_rows": MULTI_STEPS}}
+    for case, w in want.items():
+        if {k: v for k, v in ref[case]["launches"].items() if v} != w:
+            raise AssertionError(f"multi {case}: one-rank launches {ref[case]['launches']}, expected {w}")
+    if ref_frame_launches != 2 * math.ceil(800 * 800 / 8192):
+        raise AssertionError(f"multi: the one-rank frame launched {ref_frame_launches} times")
+
+    # two ranks sharing the card over gloo
+    ranks = multi_spawn(2, work_dir, "gloo")
+    line.update(multi_compare(ranks, ref, ref_masks, ref_frame, timed=True))
+    # this phase's launches of each kernel, on the one-rank runs, the NCCL rank and both gloo ranks
+    runs = [r["launches"] for r in ref.values()] + [nccl_launches]
+    runs += [r["launches"][c] for r in ranks for c in r["launches"]]
+    runs += [r["model_axis"][c]["launches"] for r in ranks for c in r["model_axis"]]
+    runs += [{"fused_nerf_mlp_fwd": n} for n in [ref_frame_launches] + [r["frame_launches"] for r in ranks]]
+    line["launches"] = {k: sum(run.get(k, 0) for run in runs) for k in kernel_counters()}
+
+    # row 7's slice scatter against the full-table launch
+    from xrnerf_torch.models.embedders.hashenc import HashEncoding
+
+    enc_rows = HashEncoding(n_levels=16, n_features=2, log2_table_size=19, base_res=16, max_res=2048).level_rows
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    L, M, T = 16, 524_288, 1 << 19
+    idx = torch.randint(0, T, (L, M), generator=g, device="cuda") % torch.tensor(enc_rows, device="cuda")[:, None]
+    vals = torch.randn((L, M, 2), generator=g, device="cuda")
+    full = scatter_add_rows_levels(idx, vals, enc_rows, T)
+    errs = []
+    for m in range(2):
+        t, off = T // 2, m * T // 2
+        part = scatter_add_rows_levels(idx - off, vals, shard_rows(enc_rows, off, t), t)
+        errs.append(scatter_check(f"slice {m}", part, full[:, off:off + t]))
+    line["slice_scatter"] = {"levels": L, "rows_per_level": M, "table_rows": T, "max_abs_err": max(errs)}
+
+    if torch.cuda.device_count() >= 2:  # NCCL, one rank per card: the same checks, no times (no cell asks for them)
+        n = torch.cuda.device_count()
+        line["nccl_per_card"] = {"ranks": n, **multi_compare(multi_spawn(n, work_dir, "nccl"), ref, ref_masks,
+                                                             ref_frame, timed=False)}
+    else:
+        line["nccl_per_card"] = "not run: one card"
+    line["seconds"] = time.perf_counter() - t_phase
+    return line
+
+
 
 def nerf_counters():
     """The launch counters of the two vanilla-NeRF kernels."""
@@ -3122,31 +3526,41 @@ def main() -> int:
         emit(gnr_phase(work_dir))
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+
+    # 31. multi: data and model axes, two ranks sharing the card over gloo, one NCCL rank
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    try:
+        multi = multi_phase(work_dir)
+        emit(multi)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
     check_card_flags("end")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
-    # 31. kernels
+    # 32. kernels
     k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
     keys = ("rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": "fused_nerf_mlp_fwd", "route": "cuda", "source": "xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu",
          "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:150",
-         "launches": main_path_launches + train_launches["fused_nerf_mlp_fwd"] + kilo_launches,
+         "launches": main_path_launches + train_launches["fused_nerf_mlp_fwd"] + kilo_launches
+         + multi["launches"]["fused_nerf_mlp_fwd"],
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()), **{k: k1[k] for k in keys}},
         {"name": "fused_nerf_mlp_bwd", "route": "cuda", "source": "xrnerf_torch/csrc/fused_nerf_mlp_bwd.cu",
          "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:159",
-         "launches": train_launches["fused_nerf_mlp_bwd"],
+         "launches": train_launches["fused_nerf_mlp_bwd"] + multi["launches"]["fused_nerf_mlp_bwd"],
          "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
          "min_cos": min(r["min_cos"] for r in bwd_rows.values()), **{k: b1[k] for k in keys}},
         *({"name": name, "route": "cuda", "source": f"xrnerf_torch/csrc/fused_mlp_{name[-3:]}.cu",
            "replaces": f"xrnerf_tpu/ops/pallas/fused_mlp.py:{line}",
-           "launches": ngp_launches.get(name, 0) + ngp_train_launches[name],
+           "launches": ngp_launches.get(name, 0) + ngp_train_launches[name] + multi["launches"][name],
            "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
            **{k: rows[name][262_144][k] for k in keys}}
           for name, line, rows in (("fused_mlp2_fwd", 64, tiny_rows), ("fused_mlp2_bwd", 77, tiny_bwd_rows),
                                    ("fused_mlp3_fwd", 184, tiny_rows), ("fused_mlp3_bwd", 202, tiny_bwd_rows))),
         {"name": "scatter_add_rows", "route": "cuda", "source": "xrnerf_torch/csrc/scatter_rows.cu",
-         "replaces": "xrnerf_tpu/ops/pallas/scatter_rows.py:62", "launches": ngp_train_launches["scatter_add_rows"],
+         "replaces": "xrnerf_tpu/ops/pallas/scatter_rows.py:62",
+         "launches": ngp_train_launches["scatter_add_rows"] + multi["launches"]["scatter_add_rows"],
          "max_abs_err": max(r["max_abs_err"] for r in scatter_rows.values()),
          **{k: scatter_rows["vertex_step"][k] for k in keys}, "levels": scatter_rows["vertex_step"]["levels"],
          "other_shapes": {c: {k: r[k] for k in ("rows", "width", "num_rows", "ms", "plain_ms", "bound_ms", "library_ms")}
@@ -3157,4 +3571,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multi-worker"]:  # one rank of phase 31
+        r, w, p, out, backend = sys.argv[2:7]
+        sys.exit(multi_worker(int(r), int(w), int(p), out, backend))
     sys.exit(main())

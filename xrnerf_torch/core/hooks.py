@@ -1,7 +1,9 @@
 """Hook protocol + the standard hooks — port of ``xrnerf_tpu/core/hooks.py``
 (``ValidateHook``, ``TestHook``, ``SaveSpiralHook``, ``OccupationHook``,
 ``ElapsedTimeHook``, ``ProfileHook``, ``SampleBudgetHook``). Images are written only when
-``save_img`` is set, and ``imageio`` is imported only then.
+``save_img`` is set, and ``imageio`` is imported only then. Under a mesh every
+rank renders (the renderer shares the chunks out) and only global rank 0
+(``parallel.mesh.is_main``) writes images, JSON and traces or reads the kill switch.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from ..parallel.mesh import is_main
 from ..registry import HOOKS
 from ..utils.logger import get_logger
 from ..utils.metrics import psnr, ssim, to8b
@@ -54,7 +57,7 @@ class ValidateHook(Hook):
             ret = tr.render_image(rays, gt.shape[0], gt.shape[1])
             psnrs.append(float(psnr(ret["rgb"], gt)))
             ssims.append(float(ssim(ret["rgb"], gt)))
-            if self.save_img:
+            if self.save_img and is_main():
                 import imageio.v2 as imageio
 
                 os.makedirs(out_dir, exist_ok=True)
@@ -81,14 +84,15 @@ class TestHook(Hook):
         per_scale: Dict[int, List[float]] = {i: [] for i in range(self.ndown)}
         per_scale_ssim: Dict[int, List[float]] = {i: [] for i in range(self.ndown)}
         out_dir = os.path.join(tr.work_dir, "test")
-        os.makedirs(out_dir, exist_ok=True)
+        if is_main():
+            os.makedirs(out_dir, exist_ok=True)
         for n, i in enumerate(ds.i_test):
             rays, gt = ds.eval_item(int(i))
             ret = tr.render_image(rays, gt.shape[0], gt.shape[1])
             s = n % self.ndown
             per_scale[s].append(float(psnr(ret["rgb"], gt)))
             per_scale_ssim[s].append(float(ssim(ret["rgb"], gt)))
-            if self.save_img:
+            if self.save_img and is_main():
                 import imageio.v2 as imageio
 
                 imageio.imwrite(os.path.join(out_dir, f"test_{n}.png"), to8b(ret["rgb"]))
@@ -96,8 +100,9 @@ class TestHook(Hook):
             "psnr": {s: float(np.mean(v)) for s, v in per_scale.items() if v},
             "ssim": {s: float(np.mean(v)) for s, v in per_scale_ssim.items() if v},
         }
-        with open(os.path.join(out_dir, "test_results.json"), "w") as f:
-            json.dump(results, f, indent=2)
+        if is_main():
+            with open(os.path.join(out_dir, "test_results.json"), "w") as f:
+                json.dump(results, f, indent=2)
         get_logger().info("[test] %s", results)
         tr.eval_metrics = results
 
@@ -123,7 +128,7 @@ class SaveSpiralHook(Hook):
             rays, hw = ds.spiral_item(np.asarray(pose))
             ret = tr.render_image(rays, hw[0], hw[1])
             self.frames.append(to8b(ret["rgb"]))
-        if not self.save_img:
+        if not (self.save_img and is_main()):
             return
         import imageio.v2 as imageio
 
@@ -161,16 +166,19 @@ class ElapsedTimeHook(Hook):
 
 @HOOKS.register
 class OccupationHook(Hook):
-    """Cooperative kill switch: stop when ``<work_dir>/<marker>`` is removed."""
+    """Cooperative kill switch: stop when ``<work_dir>/<marker>`` is removed
+    (under a mesh, rank 0 reads it and the ranks stop together at the end
+    of a log window)."""
 
     def __init__(self, marker: str = "delete_me_to_stop"):
         self.marker = marker
 
     def on_run_begin(self, tr: "Trainer") -> None:
-        os.makedirs(os.path.join(tr.work_dir, self.marker), exist_ok=True)
+        if is_main():
+            os.makedirs(os.path.join(tr.work_dir, self.marker), exist_ok=True)
 
     def after_step(self, tr: "Trainer", step: int, logs) -> None:
-        if not os.path.isdir(os.path.join(tr.work_dir, self.marker)):
+        if is_main() and not os.path.isdir(os.path.join(tr.work_dir, self.marker)):
             get_logger().info("kill-switch dir removed; stopping at step %d", step)
             tr.request_stop()
 
@@ -239,8 +247,9 @@ class ProfileHook(Hook):
             torch.cuda.synchronize(tr.device)
         self._prof.__exit__(None, None, None)
         logdir = self.logdir or os.path.join(tr.work_dir, "profile")
-        os.makedirs(logdir, exist_ok=True)
-        self._prof.export_chrome_trace(os.path.join(logdir, f"trace_{self.start_step}_{step}.json"))
+        if is_main():
+            os.makedirs(logdir, exist_ok=True)
+            self._prof.export_chrome_trace(os.path.join(logdir, f"trace_{self.start_step}_{step}.json"))
         self._prof = None
         get_logger().info("[profile] trace for steps %d-%d written to %s", self.start_step, step, logdir)
 

@@ -10,7 +10,15 @@ stage): they go to the device once per image, are never padded or chunked,
 and are merged into every chunk's batch. ``keys`` names the outputs to keep;
 one that the network does not return is left out of the result (``HashNerfNetwork`` returns ``depth``
 and no ``disp``, so the default keys give its ``rgb`` and ``acc``; pass
-``"depth"`` for its depth map). Multi-GPU meshes are not ported yet.
+``"depth"`` for its depth map).
+
+With a ``mesh`` (``parallel.mesh``), whole chunks go round-robin over the
+data ranks, chunk c to data rank ``c % D``, and the results are gathered on
+every rank: each chunk is rendered as one process renders it, so per-chunk
+rules (KiloNeRF's capacity, Instant-NGP's sample budget) need nothing more
+and the frame equals the one-process frame. The ranks of a model group
+render the same chunks together. Every rank renders ``ceil(C / D)`` chunks
+(a rank past the end repeats the last chunk, whose result is dropped).
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import mesh as pm
 
 
 # A culled ray's fill per output: 1.0 rgb, 1e10 disp (an empty ray's 1 / 1e-10), 0 otherwise.
@@ -31,6 +41,7 @@ def render_rays_chunked(
     chunk: int = 8192,
     keys: tuple = ("rgb", "disp", "acc"),
     active_fn: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None,
+    mesh: Optional[pm.Mesh] = None,
 ) -> Dict[str, np.ndarray]:
     """Run ``model(chunk_batch, train=False)`` over [R, ...] rays;
     returns host numpy arrays of leading dim R.
@@ -40,32 +51,31 @@ def render_rays_chunked(
     be conservative (``kilonerf_strip_active`` proves a ray has no occupied
     sample). Active rays are compacted into full chunks (the last padded
     with the first active ray, whose extra renders are dropped); a fully
-    culled frame renders one probe chunk to learn the outputs' shapes."""
+    culled frame renders one probe chunk to learn the outputs' shapes.
+    Under a mesh the prepass runs on each rank's chunks, so ``active_fn``
+    must give a chunk's rays the mask it gives them in the whole (the strip
+    cull does for a chunk that is a multiple of its strip)."""
     device = next(model.parameters()).device
     ctx = {k: torch.from_numpy(np.require(v, requirements="C")).to(device)
            for k, v in rays.items() if k.startswith("ctx_") or np.ndim(v) == 0}
     ray_keys = {k: v for k, v in rays.items() if k not in ctx and k != "target"}
     n = next(iter(ray_keys.values())).shape[0]
-    n_pad = (-n) % chunk
-    padded = {
-        k: np.concatenate([v, np.repeat(v[-1:], n_pad, axis=0)], axis=0) if n_pad else v
-        for k, v in ray_keys.items()
-    }
-    total = n + n_pad
+    padded = pm.pad_to_multiple(ray_keys, chunk)
+    total = next(iter(padded.values())).shape[0]
+
+    def rays_of(part) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(v[part])).to(device) for k, v in padded.items()}
 
     def run(parts) -> Dict[str, list]:
         """Render each chunk's rays (a slice or an index array of ``chunk`` rays)."""
-        outs: Dict[str, list] = {k: [] for k in keys}
-        for part in parts:
-            cb = {k: torch.from_numpy(np.ascontiguousarray(v[part])).to(device) for k, v in padded.items()}
-            ret = model({**cb, **ctx}, train=False)
-            for k in keys:
-                if k in ret:
-                    outs[k].append(ret[k])
-        return outs
+        return _spread(mesh, parts, lambda part: model({**rays_of(part), **ctx}, train=False), keys)
 
     if active_fn is not None:
-        act = active_fn({k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in padded.items()})
+        if mesh is None:
+            act = active_fn(rays_of(slice(None)))
+        else:
+            parts = [slice(start, start + chunk) for start in range(0, total, chunk)]
+            act = torch.cat(_spread(mesh, parts, lambda part: {"a": active_fn(rays_of(part))}, ("a",))["a"])
         idx = np.nonzero(act.cpu().numpy())[0]
         if idx.size < total:  # something culled: compact the active rays, fill the rest
             if idx.size == 0:
@@ -88,6 +98,28 @@ def render_rays_chunked(
     return {k: torch.cat(v, dim=0)[:n].cpu().numpy() for k, v in outs.items() if v}
 
 
+def _spread(mesh: Optional[pm.Mesh], parts: list, fn: Callable, keys) -> Dict[str, list]:
+    """{key: [fn(part)[key] for each part]}, without a mesh on this rank;
+    with one, part c on data rank ``c % D`` and the results all-gathered.
+    Keys that ``fn`` does not return are left out."""
+
+    def keep(part) -> Dict[str, torch.Tensor]:
+        return {k: v for k, v in fn(part).items() if k in keys}
+
+    if mesh is None or mesh.data_group is None:
+        outs = [keep(p) for p in parts]
+        return {k: [o[k] for o in outs] for k in keys if outs and k in outs[0]}
+    D, d, n = mesh.data_size, mesh.data_rank, len(parts)
+    per = -(-n // D)
+    mine = [keep(parts[min(d + D * j, n - 1)]) for j in range(per)]
+    got = {}
+    for k in keys:
+        if k in mine[0]:
+            every = pm.all_gather_rows(torch.stack([o[k] for o in mine])[None], mesh.data_group)  # [D, per, ...]
+            got[k] = [every[c % D, c // D] for c in range(n)]
+    return got
+
+
 def render_image(
     model: torch.nn.Module,
     rays: Dict[str, np.ndarray],
@@ -95,6 +127,7 @@ def render_image(
     W: int,
     chunk: int = 8192,
     keys: tuple = ("rgb", "disp", "acc"),
+    mesh: Optional[pm.Mesh] = None,
 ) -> Dict[str, np.ndarray]:
-    flat = render_rays_chunked(model, rays, chunk, keys)
+    flat = render_rays_chunked(model, rays, chunk, keys, mesh=mesh)
     return {k: v.reshape(H, W, *v.shape[1:]) for k, v in flat.items()}

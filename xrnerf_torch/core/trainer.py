@@ -35,8 +35,27 @@ name``) trains only the parameters that pass it: the optimizer and the
 ``grad_clip`` norm cover those alone, and the others get
 ``requires_grad_(False)``, so they take no update, as the JAX trainer's
 ``optax.set_to_zero`` branch gives them none. The EMA averages every
-parameter, frozen ones too, as the JAX trainer's ``_ema_update`` does. The mesh protocol
-(multi-GPU) comes with its slice.
+parameter, frozen ones too, as the JAX trainer's ``_ema_update`` does.
+
+With a ``mesh`` (``parallel.mesh.make_mesh``), the run is one data-parallel
+and model-parallel program that computes what one process computes on the
+global batch, as the JAX trainer under its mesh does:
+
+- each data rank fetches its rows of the step's batch
+  (``train_batch(step, data rank, data size)``); the step's generator draws
+  for the global batch and keeps the rank's rows;
+- the loss runs on the global rows (``parallel.mesh.global_view`` gathers
+  the outputs and batch keys it reads), so every rank holds the same loss
+  and logs, and each rank's backward yields its rows' share of the gradient;
+  the gradients are summed over the data group before the clip, whose norm
+  sums the squares of model-cut parameters over the model group; a
+  ``param_loss`` enters the backward of data rank 0 alone;
+- parameters named by the network's ``param_spec`` are cut over the model
+  group (``parallel.mesh.shard_module``); Adam and EMA state follow their
+  slices; checkpoints hold full tensors written by rank 0, and a resume cuts
+  them again, so one-process and multi-rank checkpoints are interchangeable;
+- after every aux refresh rank 0's buffers (the occupancy grid) are
+  broadcast; a stop request is agreed at the end of a log window.
 
 The Trainer sets no process-wide flag: on the card, call
 ``utils.device.configure_card`` before building it (TF32 off, cuDNN's
@@ -53,6 +72,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh as pm
 from ..registry import HOOKS
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
@@ -113,9 +133,12 @@ def build_optimizer(params, cfg: Dict[str, Any]):
     return opt, scheduler, (float(clip) if clip else None)
 
 
-def step_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
-    """The step's random stream (the JAX trainer's ``fold_in(base, step)``)."""
-    return torch.Generator(device=device).manual_seed(seed * 2**32 + step)
+def step_generator(device: torch.device, seed: int, step: int, rows: Optional[pm.RowShard] = None) -> torch.Generator:
+    """The step's random stream (the JAX trainer's ``fold_in(base, step)``);
+    with ``rows``, a rank's part of the global batch's stream."""
+    g = pm.StepGenerator(device=device).manual_seed(seed * 2**32 + step)
+    g.rows = rows
+    return g
 
 
 class Trainer:
@@ -136,8 +159,10 @@ class Trainer:
         load_from: Optional[str] = None,
         ema_decay: float = 0.0,
         device="cuda",
+        mesh: Optional[pm.Mesh] = None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.network = network.to(self.device)
         self.dataset = dataset
         self.work_dir = work_dir
@@ -157,6 +182,8 @@ class Trainer:
         self.network.reset_parameters(torch.Generator().manual_seed(seed))
         if hasattr(self.network, "init_aux"):
             self.network.init_aux(dataset)
+        # {name: dim} of the parameters cut over the model axis
+        self.sharded = pm.shard_module(self.network, mesh) if mesh is not None else {}
         self.trained_params = list(self.network.parameters())
         filt = self.network.trainable_filter() if hasattr(self.network, "trainable_filter") else None
         if filt is not None:
@@ -166,19 +193,21 @@ class Trainer:
         opt_cfg = dict(optimizer or {})
         opt_cfg.setdefault("max_steps", max_iters)
         self.optimizer, self.scheduler, self.grad_clip = build_optimizer(self.trained_params, opt_cfg)
+        names = {id(p): n for n, p in self.network.named_parameters()}
+        self._trained_names = [names[id(p)] for p in self.trained_params]
         self.start_step = 0
 
         if resume_from:
             state = ckpt.load(resume_from, map_location=self.device)
-            self.network.load_state_dict(state["model"])
-            self.optimizer.load_state_dict(state["optimizer"])
+            self.network.load_state_dict(pm.local_state(state["model"], self.sharded, mesh))
+            self.optimizer.load_state_dict(self._optimizer_state(state["optimizer"], pm.take_shard))
             self.scheduler.load_state_dict(state["scheduler"])
             self.start_step = int(state["step"])
             self.logger.info("resumed from %s at step %d", resume_from, self.start_step)
         elif load_from:
             sd = torch.load(load_from, map_location=self.device, weights_only=True)
             # a weights file, or a trainer checkpoint (its "model"), as JAX's load_from reads either
-            self.network.load_state_dict(sd.get("model", sd.get("state_dict", sd)))
+            self.network.load_state_dict(pm.local_state(sd.get("model", sd.get("state_dict", sd)), self.sharded, mesh))
             self.logger.info("loaded weights from %s", load_from)
         self.step = self.start_step
 
@@ -187,7 +216,7 @@ class Trainer:
         if ema_decay > 0:
             self.ema_network = copy.deepcopy(self.network).requires_grad_(False)
             if resume_from and state.get("ema") is not None:
-                self.ema_network.load_state_dict(state["ema"])
+                self.ema_network.load_state_dict(pm.local_state(state["ema"], self.sharded, mesh))
                 self._sync_ema_buffers()
 
     # ------------------------------------------------------------------
@@ -203,7 +232,7 @@ class Trainer:
         return self.eval_network.state_dict()
 
     def render_image(self, rays: Dict[str, np.ndarray], H: int, W: int):
-        return _render_image(self.eval_network, rays, H, W, chunk=self.eval_chunk)
+        return _render_image(self.eval_network, rays, H, W, chunk=self.eval_chunk, mesh=self.mesh)
 
     def _put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Host arrays to the device: pinned memory and an asynchronous copy
@@ -238,29 +267,57 @@ class Trainer:
         from its own random stream, on the live network, and hand the new
         state to the EMA copy."""
         self.network.update_aux(step_generator(self.device, self.seed, 2**31 + step))
+        pm.broadcast_buffers(self.network, self.mesh)
         if self.ema_network is not None:
             self._sync_ema_buffers()
 
+    def _optimizer_state(self, state: Dict[str, Any], convert) -> Dict[str, Any]:
+        """An optimizer state dict with the moments of model-cut parameters
+        gathered (``pm.gather_shards``) or cut (``pm.take_shard``)."""
+        if not self.sharded:
+            return state
+        out = {**state, "state": {}}
+        for i, st in state["state"].items():
+            dim = self.sharded.get(self._trained_names[int(i)])
+            out["state"][i] = st if dim is None else {
+                k: convert(v, dim, self.mesh) if torch.is_tensor(v) and v.dim() > dim else v for k, v in st.items()
+            }
+        return out
+
     def save_checkpoint(self, step: int) -> str:
+        """Full tensors on every rank's behalf (the model group gathers its
+        slices), written by rank 0."""
         return ckpt.save(self.work_dir, step, {
             "step": step,
-            "model": self.network.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "model": pm.full_state(self.network.state_dict(), self.sharded, self.mesh),
+            "optimizer": self._optimizer_state(self.optimizer.state_dict(), pm.gather_shards),
             "scheduler": self.scheduler.state_dict(),
-            "ema": self.ema_network.state_dict() if self.ema_network is not None else None,
+            "ema": pm.full_state(self.ema_network.state_dict(), self.sharded, self.mesh)
+            if self.ema_network is not None else None,
         })
 
     def train_step(self, batch: Dict[str, torch.Tensor], step: int) -> Dict[str, torch.Tensor]:
         """One optimizer step; returns the network's logs, detached, on the device."""
+        mesh = self.mesh
         self.optimizer.zero_grad(set_to_none=True)
-        outputs = self.network(batch, generator=step_generator(self.device, self.seed, step), train=True)
+        rows = mesh.rows if mesh is not None else None
+        outputs = self.network(batch, generator=step_generator(self.device, self.seed, step, rows), train=True)
+        if mesh is not None:
+            outputs, batch = pm.global_view(outputs, batch, rows)
         loss, logs = self.network.loss(outputs, batch)
         if hasattr(self.network, "param_loss"):
             reg = self.network.param_loss()
-            loss = loss + reg
-            logs = {**logs, "param_reg": reg, "loss": loss}
+            total = loss + reg
+            logs = {**logs, "param_reg": reg, "loss": total}
+            # a term of no row: in the backward of one data rank, so that the summed gradient holds it once
+            loss = total if mesh is None or mesh.data_rank == 0 else loss
         loss.backward()
-        if self.grad_clip is not None:
+        if mesh is not None:
+            pm.reduce_gradients(self.trained_params, mesh)
+        if self.grad_clip is not None and mesh is not None:
+            pm.clip_grad_norm_(self.trained_params, self.grad_clip,
+                               [n in self.sharded for n in self._trained_names], mesh)
+        elif self.grad_clip is not None:
             torch.nn.utils.clip_grad_norm_(self.trained_params, self.grad_clip)
         self.optimizer.step()
         self.scheduler.step()
@@ -276,15 +333,21 @@ class Trainer:
             h.on_run_begin(self)
         window_logs: Dict[str, list] = {}
         t_window = time.perf_counter()
+        mesh = self.mesh
+        d_size = mesh.data_size if mesh is not None else 1
+        fetch = self.dataset.train_batch
+        if mesh is not None:  # this data rank's rows of the global batch
+            fetch = lambda s: self.dataset.train_batch(s, mesh.data_rank, mesh.data_size)  # noqa: E731
         prefetcher = BatchPrefetcher(
-            fetch=self.dataset.train_batch, put=self._put_batch,
+            fetch=fetch, put=self._put_batch,
             start_step=self.start_step, max_steps=self.max_iters,
         )
         step = self.start_step
+        agreed_stop = False  # under a mesh a stop request counts once the ranks agree on it
         self.network.train()
         aux_interval = getattr(self.network, "aux_interval", 0) if hasattr(self.network, "update_aux") else 0
         try:
-            while step < self.max_iters and not self._stop:
+            while step < self.max_iters and not (self._stop if mesh is None else agreed_stop):
                 if aux_interval and step % aux_interval == 0:
                     self.update_aux(step)
                 logs = self.train_step(prefetcher.get(step), step)
@@ -297,7 +360,7 @@ class Trainer:
                     # one host sync per window
                     vals = {k: float(torch.stack(v).float().mean()) for k, v in window_logs.items()}
                     dt = time.perf_counter() - t_window
-                    rays_s = self.dataset.N_rand * self.log_interval / dt
+                    rays_s = self.dataset.N_rand * d_size * self.log_interval / dt  # the global batch
                     self.logger.info(
                         "iter %d/%d  %s  %.0f rays/s  %.1f ms/it", step, self.max_iters,
                         "  ".join(f"{k} {v:.4f}" for k, v in vals.items()), rays_s,
@@ -305,6 +368,7 @@ class Trainer:
                     )
                     self.last_logs = {**vals, "rays_per_sec": rays_s, "ms_per_step": 1000 * dt / self.log_interval}
                     window_logs = {}
+                    agreed_stop = pm.any_rank(self._stop, mesh, self.device)
                     t_window = time.perf_counter()
 
                 for h in self.hooks:

@@ -35,6 +35,17 @@ Brick layout: at hash(cell) one row of 8 * F lanes holds the features of all
 the vertex table's parameter count. Its backward gathers again instead of
 keeping rows, and scatters [L, N, 8 * F] rows with ``skip_zero_rows``, one
 launch per lattice.
+
+Under a mesh whose model axis holds M ranks (``parallel.mesh``; the
+network's ``param_spec`` names the table), each rank holds rows
+``[m T / M, (m + 1) T / M)`` of every level's bucket dimension (vertex T,
+brick tb). A point's lookup gathers the corners that fall in the rank's
+slice (zero elsewhere) and trilerps them: a partial encoding, summed over the
+model group (``reduce_from``; the input goes through ``copy_to``, so the
+positions' gradient is the sum of the partial ones). The backward scatters
+into the slice alone: ids shifted by the slice's offset, the level row counts
+of ``ops.scatter_rows.shard_rows``, so the kernel drops the rows of the other
+slices.
 """
 
 from __future__ import annotations
@@ -45,7 +56,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ...ops.scatter_rows import scatter_add_rows_levels
+from ...ops.scatter_rows import scatter_add_rows_levels, shard_rows
+from ...parallel.mesh import copy_to, model_group, reduce_from
 
 # NGP's spatial hash primes (pi1 = 1 for x).
 _PRIMES = (1, 2654435761, 805459861)
@@ -63,6 +75,20 @@ def _level_resolutions(base_res: int, scale: float, n_levels: int) -> np.ndarray
     return np.floor(base_res * scale ** np.arange(n_levels)).astype(np.int64)
 
 
+def _table_slice(enc: nn.Module, dim: int, full: int) -> Optional[Tuple[int, int]]:
+    """(offset, rows) of the rank's slice of the table's bucket dimension
+    ``dim`` when the table is cut over the model axis, None when whole."""
+    rows = enc.table.shape[dim]
+    return None if rows == full else (enc.mesh.model_rank * rows, rows)
+
+
+def _sharded_forward(enc: nn.Module, lookup, x: torch.Tensor) -> torch.Tensor:
+    """``lookup.apply(table, x, enc)`` on [N, 3]; under a model axis the
+    partial encodings summed over its group."""
+    group = model_group(enc)
+    return reduce_from(lookup.apply(enc.table, copy_to(x, group), enc), group)
+
+
 def _corner_weights(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """t [..., 3] -> trilerp weights, the 8 corners (order = _CORNERS)
     stacked along ``dim`` of the [...] shape ([..., 8] by default)."""
@@ -72,6 +98,8 @@ def _corner_weights(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 class HashEncoding(nn.Module):
     """x in [0,1]^3 -> [..., n_levels * n_features] encoding (level-major)."""
+
+    mesh = None  # set by parallel.mesh.shard_module
 
     def __init__(
         self,
@@ -136,8 +164,17 @@ class HashEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
-        out = _VertexLookup.apply(self.table, x.reshape(-1, 3).float(), self)
+        out = _sharded_forward(self, _VertexLookup, x.reshape(-1, 3).float())
         return out.reshape(*lead, self.n_levels * self.n_features).to(self.dtype)
+
+    def _slice_rows(self, idx: torch.Tensor):
+        """Global corner ids -> (ids shifted into the rank's slice, ids to
+        gather, inside mask) of a cut table; (idx, idx, None) of a whole one."""
+        sl = _table_slice(self, 1, self.table_size)
+        if sl is None:
+            return idx, idx, None
+        local = idx - sl[0]
+        return local, local.clamp(0, sl[1] - 1), (local >= 0) & (local < sl[1])
 
 
 def _gather_trilerp(enc: "HashEncoding", table, idx, w8) -> torch.Tensor:
@@ -173,16 +210,18 @@ class _VertexLookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, x, enc):
         idx, t = enc._corner_cells(x)
+        idx, gidx, inside = enc._slice_rows(idx)
         ctx.enc = enc
         ctx.save_for_backward(idx, t, table)
-        return _gather_trilerp(enc, table, idx, _corner_weights(t, dim=1))
+        w8 = _corner_weights(t, dim=1)
+        return _gather_trilerp(enc, table, gidx, w8 if inside is None else w8 * inside)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         enc = ctx.enc
         idx, t, table = ctx.saved_tensors
-        L, F, T = enc.n_levels, enc.n_features, enc.table_size
+        L, F, T = enc.n_levels, enc.n_features, table.shape[1]
         n = t.shape[1]
         g3 = g.reshape(n, L, F).float().permute(1, 0, 2)  # [L, N, F]
         grad_table = grad_x = None
@@ -190,12 +229,20 @@ class _VertexLookup(torch.autograd.Function):
             # [L, 8 * N, F] update rows, built for all levels at once, into each
             # level's V rows in one launch; a dense level occupies only res^3 < T
             # rows, the rest stay zero
+            # (a cut table: ids outside the slice dropped, its level row counts)
             rows = (_corner_weights(t, dim=1)[..., None] * g3[:, None]).reshape(L, 8 * n, F)
-            grad_table = scatter_add_rows_levels(idx.reshape(L, 8 * n), rows, enc.level_rows, T).to(table.dtype)
+            level_rows = enc.level_rows if T == enc.table_size else shard_rows(enc.level_rows, enc.mesh.model_rank * T, T)
+            grad_table = scatter_add_rows_levels(idx.reshape(L, 8 * n), rows, level_rows, T).to(table.dtype)
         if ctx.needs_input_grad[1]:
+            inside = None
+            if T != enc.table_size:  # the partial form: corners outside the slice count zero
+                inside = (idx >= 0) & (idx < T)
+                idx = idx.clamp(0, T - 1)
             gdot = []
             for lvl in range(L):
                 feats = table[lvl].index_select(0, idx[lvl].reshape(-1)).view(8, n, F)
+                if inside is not None:
+                    feats = feats * inside[lvl].reshape(8, n, 1)
                 gdot.append((feats.float() * g3[lvl][None]).sum(dim=-1).t())  # [N, 8]
             dw = _dweights_dt(t, torch.stack(gdot))  # [L, N, 3]
             grad_x = (dw * enc._res_m1).sum(dim=0).to(t.dtype)
@@ -219,6 +266,8 @@ class BrickHashEncoding(nn.Module):
     with ``n_lattices`` row gathers per point and level instead of eight.
     ``blend='mean'`` averages the lattices; ``'smooth'`` weights lattice k by
     its face bump ``prod_d t_d (1 - t_d)``, normalised over the lattices."""
+
+    mesh = None  # set by parallel.mesh.shard_module
 
     def __init__(
         self,
@@ -271,17 +320,29 @@ class BrickHashEncoding(nn.Module):
         return idx, t
 
     def _brick_rows(self, table: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
-        """One row per (level, point) of lattice k: idx [L, N] -> [L, N, 8, F]."""
+        """One row per (level, point) of lattice k: idx [L, N] -> [L, N, 8, F].
+        A cut table takes ids shifted into its slice; a row outside it reads
+        zero."""
         L, n = idx.shape
-        flat = table.reshape(L * self.n_lattices * self.rows, 8 * self.n_features)
-        fidx = (idx + self._level_offs + k * self.rows).reshape(-1)
-        return flat.index_select(0, fidx).view(L, n, 8, self.n_features)
+        tb = table.shape[2]
+        flat = table.reshape(L * self.n_lattices * tb, 8 * self.n_features)
+        if tb == self.rows:
+            fidx = (idx + self._level_offs + k * self.rows).reshape(-1)
+            return flat.index_select(0, fidx).view(L, n, 8, self.n_features)
+        offs = torch.arange(L, device=idx.device)[:, None] * (self.n_lattices * tb)
+        fidx = (idx.clamp(0, tb - 1) + offs + k * tb).reshape(-1)
+        inside = (idx >= 0) & (idx < tb)
+        return flat.index_select(0, fidx).view(L, n, 8, self.n_features) * inside[..., None, None]
 
     def _lattices(self, table, x):
-        """Per lattice: (idx, t, w8 [L, N, 8], rows, s [L, N, F] its trilerp)."""
+        """Per lattice: (idx, t, w8 [L, N, 8], rows, s [L, N, F] its trilerp);
+        with a cut table, idx is shifted into the rank's slice."""
+        sl = _table_slice(self, 2, self.rows)
         out = []
         for k in range(self.n_lattices):
             idx, t = self._brick_cells(x, k)
+            if sl is not None:
+                idx = idx - sl[0]
             rows = self._brick_rows(table, idx, k)
             w8 = _corner_weights(t)
             out.append((idx, t, w8, rows, (rows * w8[..., None]).sum(dim=2)))
@@ -304,7 +365,7 @@ class BrickHashEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
-        out = _BrickLookup.apply(self.table, x.reshape(-1, 3).float(), self)
+        out = _sharded_forward(self, _BrickLookup, x.reshape(-1, 3).float())
         return out.reshape(*lead, self.n_levels * self.n_features).to(self.dtype)
 
 
@@ -330,7 +391,7 @@ class _BrickLookup(torch.autograd.Function):
     def backward(ctx, g):
         enc = ctx.enc
         table, x = ctx.saved_tensors
-        L, F, K, tb = enc.n_levels, enc.n_features, enc.n_lattices, enc.rows
+        L, F, K, tb = enc.n_levels, enc.n_features, enc.n_lattices, table.shape[2]
         n = x.shape[0]
         need_table, need_x = ctx.needs_input_grad[:2]
         g3 = g.reshape(n, L, F).float().permute(1, 0, 2)  # [L, N, F]

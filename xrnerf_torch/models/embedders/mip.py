@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...parallel.mesh import draw
+
 _F32_EPS = float(torch.finfo(torch.float32).eps)
 
 
@@ -144,7 +146,7 @@ def sample_along_rays_mip(
         mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
         upper = torch.cat([mids, t_vals[..., -1:]], -1)
         lower = torch.cat([t_vals[..., :1], mids], -1)
-        t_rand = torch.rand((batch, num_samples + 1), generator=generator, dtype=origins.dtype, device=origins.device)
+        t_rand = draw(torch.rand, (batch, num_samples + 1), generator, dtype=origins.dtype, device=origins.device)
         t_vals = lower + (upper - lower) * t_rand
     else:
         t_vals = t_vals.expand(batch, num_samples + 1)
@@ -171,7 +173,7 @@ def sorted_piecewise_constant_pdf(
     if randomized and generator is not None:
         s = 1 / num_samples
         u = torch.arange(num_samples, dtype=bins.dtype, device=bins.device) * s
-        u = u + torch.rand(shape, generator=generator, dtype=bins.dtype, device=bins.device) * (s - _F32_EPS)
+        u = u + draw(torch.rand, shape, generator, dtype=bins.dtype, device=bins.device) * (s - _F32_EPS)
         u = torch.clamp(u, max=1.0 - _F32_EPS)
     else:
         u = torch.linspace(0.0, 1.0 - _F32_EPS, num_samples, dtype=bins.dtype, device=bins.device)

@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel.mesh import reduce_from
 from ...registry import NETWORKS
 from ...utils.metrics import img2mse, mse2psnr
 from ..embedders.posenc import posenc, posenc_channels
@@ -160,7 +161,13 @@ class AniNeRFNetwork(nn.Module):
             mask = near_body.to(torch.float32)[:, None]
             diff = torch.abs(pbw - tbw) * mask
             sl1 = torch.where(diff < 1.0, 0.5 * diff**2, diff - 0.5)  # smooth-L1 (Huber, delta 1)
-            out["bw_consistency"] = torch.sum(sl1) / torch.clamp(torch.sum(mask), min=1.0)
+            # over a data-sharded batch the denominator is the global batch's (detached, clamped after the
+            # sum), so that the ranks' shares add up to the one-process value
+            denom = torch.sum(mask)
+            rows = getattr(generator, "rows", None)
+            if rows is not None and rows.group is not None:
+                denom = reduce_from(denom.detach(), rows.group)
+            out["bw_consistency"] = torch.sum(sl1) / torch.clamp(denom, min=1.0)
         return out
 
     def loss(

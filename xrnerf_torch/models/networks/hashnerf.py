@@ -18,8 +18,16 @@ Eval (``train=False``) is deterministic and runs under
 ``torch.inference_mode()``; ``train=True`` marches under the step's generator
 and is differentiable down to the hash table, on the card through the
 backward kernels of the two tiny MLPs and the row scatter-add, with no
-device-to-host copy in the step. ``param_spec`` (multi-GPU sharding of the
-table) is not ported yet.
+device-to-host copy in the step.
+
+Under a mesh (``parallel.mesh``) ``param_spec`` cuts the hash table's bucket
+dimension over the model axis, as the JAX network's does. The sample budget
+is a rule on the global batch: with a data-sharded step generator
+(``rows``) the condition ``0 < M < n k`` counts the global n, and the first M
+live samples in global (rank-major) order are kept; each rank learns from one
+all-gather of the live counts how many of its own it keeps, and evaluates
+``min(M, n_local k)`` rows (exact; up to D times the one-process field rows
+when the budget binds).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ...parallel.mesh import MODEL_AXIS, rows_before
 from ...registry import NETWORKS
 from ...utils.metrics import huber, img2mse, mse2psnr
 from ..fields.ngp_mlp import NGPField
@@ -113,6 +122,33 @@ class HashNerfNetwork(nn.Module):
             self.grid_density.copy_(grid.density)
             self.grid_bitfield.copy_(grid.bitfield)
 
+    def budget_slots(self, live: torch.Tensor, rows=None) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """The ``sample_budget`` compaction of [n k] live flags: None when it
+        does not bind, else (sel [W] the samples the field evaluates, slot
+        [n k] each sample's row among them, W where it is dropped). Live
+        samples go to the front (the stable sort keeps ray / z order) and the
+        first M are kept. With ``rows`` (a sharded step) the rule is the
+        global batch's: a rank keeps its live samples whose global rank (those
+        of lower ranks first) is below M, W = min(M, n k)."""
+        M, nk = self.sample_budget, live.shape[0]
+        if not 0 < M < nk * (rows.size if rows is not None else 1):
+            return None
+        perm = torch.argsort((~live).to(torch.uint8), stable=True)
+        W = min(M, nk)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(nk, device=perm.device)
+        if rows is None:
+            return perm[:W], inv.clamp(max=M)
+        keep = (M - rows_before(live.sum(), rows)).clamp(min=0)
+        return perm[:W], torch.where(inv < keep, inv, W)
+
+    def param_spec(self, name: str):
+        """The table's bucket dimension on the model axis: vertex [L, T, F]
+        -> (None, model), brick [L, n_lat, tb, 8F] -> (None, None, model, None)."""
+        if name.endswith("encoding.table"):
+            return (None, MODEL_AXIS) if self.field.encoding.table.dim() == 3 else (None, None, MODEL_AXIS, None)
+        return None
+
     def density(self, pts: torch.Tensor) -> torch.Tensor:
         """Post-activation density at [..., 3] grid-coord points (used for
         grid updates)."""
@@ -141,18 +177,13 @@ class HashNerfNetwork(nn.Module):
         # shape static (repeat_interleave sizes its output with a host sync)
         dirs = march.dirs[:, None, :].expand(n, k, 3).reshape(n * k, 3)
         flat_pts = march.pts.reshape(n * k, 3)
-        M = self.sample_budget
-        if 0 < M < n * k:
-            # live samples to the front (the stable sort keeps ray / z order),
-            # evaluate the first M, and put the results back through the
-            # inverse permutation; dropped samples read the appended row
-            live = march.mask.reshape(-1)
-            perm = torch.argsort((~live).to(torch.uint8), stable=True)
-            sel = perm[:M]
+        rows = getattr(generator, "rows", None)
+        slots = self.budget_slots(march.mask.reshape(-1), rows)
+        if slots is not None:
+            # the field on the selected samples only; every sample reads its
+            # slot's result, a dropped one the appended row
+            sel, slot = slots
             rgb_c, sigma_c = self.field(flat_pts.index_select(0, sel), dirs.index_select(0, sel))
-            inv = torch.empty_like(perm)
-            inv[perm] = torch.arange(n * k, device=perm.device)
-            slot = inv.clamp(max=M)
             raw_rgb = torch.cat([rgb_c, rgb_c.new_zeros((1, 3))]).index_select(0, slot)
             # dropped (overflow) samples get -1e4 -> exp-clip ~ 0 density
             raw_sigma = torch.cat([sigma_c, sigma_c.new_full((1,), -1e4)]).index_select(0, slot)

@@ -21,8 +21,13 @@ port of ``xrnerf_tpu/models/networks/kilonerf.py``.
 
 Known behaviours of both packages, kept as they are: past ``r > RMAX`` the
 pooled march keeps the first ``n_groups_keep`` in-bounds groups blindly;
-the capacity rule drops points of crowded networks. ``param_spec``
-(multi-GPU expert sharding) is not ported yet.
+the capacity rule drops points of crowded networks.
+
+Under a mesh (``parallel.mesh``) ``param_spec`` cuts every expert stack's
+network dimension over the model axis (expert parallelism, as the JAX
+network's does); ``param_loss`` sums its slices' squares over the model
+group; a training step's capacity rule is the global batch's
+(``MultiNetworkMLP``).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.compaction import keep_first_k
+from ...parallel.mesh import MODEL_AXIS, model_group, reduce_from
 from ...registry import NETWORKS
 from ...utils.device import resolve_device
 from ...utils.metrics import img2mse, mse2psnr
@@ -378,7 +384,7 @@ class KiloNerfNetwork(nn.Module):
             rel = (flat - self.domain_lo) / (self.domain_hi - self.domain_lo)
             net_idx = torch.where(occ.reshape(-1)[_flat_cells(rel, occ.shape)], net_idx, -1)
         dirs_flat = viewdirs[:, None].expand(n, s, 3).reshape(n * s, 3)
-        raw_rgb, raw_sigma = self.mlp(local, dirs_flat, net_idx)
+        raw_rgb, raw_sigma = self.mlp(local, dirs_flat, net_idx, rows=getattr(generator, "rows", None))
         ret = volume_render(raw_rgb.reshape(n, s, 3), raw_sigma.reshape(n, s), z_vals, rays_d,
                             white_bkgd=self.white_bkgd)
         return {k: ret[k] for k in ("rgb", "disp", "acc", "depth")}
@@ -455,7 +461,12 @@ class KiloNerfNetwork(nn.Module):
 
     def param_loss(self) -> torch.Tensor:
         """L2 on the view-dependent (colour-branch) weights."""
-        return self.view_dep_reg * (self.mlp.color_hidden_w.square().sum() + self.mlp.rgb_w.square().sum())
+        sq = self.mlp.color_hidden_w.square().sum() + self.mlp.rgb_w.square().sum()
+        return self.view_dep_reg * reduce_from(sq, model_group(self.mlp))
+
+    def param_spec(self, name: str):
+        """The expert stacks ``mlp.*_w`` / ``mlp.*_b`` [n_nets, ...] on the model axis."""
+        return (MODEL_AXIS,) if name.startswith("mlp.") else None
 
 
 @NETWORKS.register
@@ -490,7 +501,7 @@ class StudentNerfNetwork(nn.Module):
 
     def forward(self, batch, generator=None, train: bool = False) -> Dict[str, torch.Tensor]:
         net_idx, local = assign_networks(batch["pts"], self.domain_lo, self.domain_hi, self.resolution)
-        raw_rgb, raw_sigma = self.mlp(local, batch["dirs"], net_idx)
+        raw_rgb, raw_sigma = self.mlp(local, batch["dirs"], net_idx, rows=getattr(generator, "rows", None))
         return {"rgb": torch.sigmoid(raw_rgb), "sigma": F.relu(raw_sigma)}
 
     def loss(self, outputs, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ...parallel.mesh import draw
 from ...registry import NETWORKS
 from ...utils.metrics import mse2psnr
 from ..embedders.mip import integrated_pos_enc, pos_enc, resample_along_rays, sample_along_rays_mip
@@ -116,8 +117,7 @@ class MipNerfNetwork(nn.Module):
             raw_rgb, raw_sigma = self.mlp(enc, views_enc)
             raw_sigma = raw_sigma.reshape(n, s)
             if train and self.density_noise > 0 and generator is not None:
-                noise = torch.randn(raw_sigma.shape, generator=generator, dtype=raw_sigma.dtype,
-                                    device=raw_sigma.device)
+                noise = draw(torch.randn, raw_sigma.shape, generator, dtype=raw_sigma.dtype, device=raw_sigma.device)
                 raw_sigma = raw_sigma + self.density_noise * noise
             ret = mip_volume_render(
                 raw_rgb.reshape(n, s, 3), raw_sigma, t_vals, rays_d,

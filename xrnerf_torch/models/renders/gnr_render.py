@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...parallel.mesh import draw
 from .volume import exclusive_cumprod
 
 
@@ -119,7 +120,7 @@ def sample_segment(
     t = (torch.arange(n_samples, device=rays_s.device, dtype=torch.float32) * (1.0 / max(n_samples - 1, 1))).expand(
         R, n_samples)
     if jitter is None and generator is not None:
-        jitter = torch.rand((R, n_samples), generator=generator, device=rays_s.device)
+        jitter = draw(torch.rand, (R, n_samples), generator, device=rays_s.device)
     if jitter is not None:  # fma(u - 0.5, fl(1 / (S - 1)), t), XLA's form of t + (u - 0.5) / (S - 1)
         t = torch.add(t, jitter - 0.5, alpha=1.0 / (n_samples - 1))
     tt = t[..., None]
@@ -170,7 +171,7 @@ def composite_gnr(
     dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], -1) * norm
     rgb = torch.sigmoid(rgb_raw)
     if noise is None and generator is not None:
-        noise = torch.randn(sigma_raw.shape, generator=generator, device=sigma_raw.device)
+        noise = draw(torch.randn, sigma_raw.shape, generator, device=sigma_raw.device)
     alpha = 1.0 - torch.exp(-F.relu(sigma_raw + noise if noise is not None else sigma_raw))
     weights = alpha * exclusive_cumprod(1.0 - alpha + 1e-10)  # cumprod([1, 1 - alpha + 1e-10])[:-1], no host sync
     acc = weights.sum(-1)

@@ -19,6 +19,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ...parallel.mesh import draw
+
 
 class _PositiveCumprod(torch.autograd.Function):
     """``torch.cumprod`` over the last dim for inputs > 0. Its backward is
@@ -60,7 +62,7 @@ def volume_render(
     rgb = torch.sigmoid(raw_rgb)
     sigma = raw_sigma
     if raw_noise_std > 0.0 and generator is not None:
-        noise = torch.randn(sigma.shape, generator=generator, dtype=sigma.dtype, device=sigma.device)
+        noise = draw(torch.randn, sigma.shape, generator, dtype=sigma.dtype, device=sigma.device)
         sigma = sigma + raw_noise_std * noise
 
     alpha = 1.0 - torch.exp(-F.relu(sigma) * dists)

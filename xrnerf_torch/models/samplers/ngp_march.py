@@ -20,6 +20,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...parallel.mesh import draw
 from ..renders.volume import exclusive_cumprod
 from .occupancy import GRID_RES, OccupancyGrid, occupied_at
 
@@ -88,7 +89,7 @@ def march_rays(
         # per-ray start jitter
         i = torch.arange(S, **kw)[None, :]
         if generator is not None:
-            i = i + torch.rand((n, 1), generator=generator, **kw)
+            i = i + draw(torch.rand, (n, 1), generator, **kw)
         tn = t_near[:, None]
         ta = tn.clamp(min=dt_min / cone_angle)  # end of dt_min regime
         tb = dt_max / cone_angle  # start of dt_max regime
@@ -103,7 +104,7 @@ def march_rays(
         # stratified candidate steps; jittered so grid aliasing decorrelates
         u = torch.linspace(0.0, 1.0, S, **kw)
         if generator is not None:
-            u = u + torch.rand((n, S), generator=generator, **kw) / S
+            u = u + draw(torch.rand, (n, S), generator, **kw) / S
         else:
             u = u.expand(n, S)
         span = (t_far - t_near)[:, None]

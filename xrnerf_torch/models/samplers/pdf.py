@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from ...parallel.mesh import draw
+
 
 def sample_pdf(
     bins: torch.Tensor,  # [N, B] z-val midpoints
@@ -33,7 +35,7 @@ def sample_pdf(
         u = torch.linspace(0.0, 1.0, num_samples, dtype=bins.dtype, device=bins.device)
         u = u.expand(shape).contiguous()
     else:
-        u = torch.rand(shape, generator=generator, dtype=bins.dtype, device=bins.device)
+        u = draw(torch.rand, shape, generator, dtype=bins.dtype, device=bins.device)
 
     last = cdf.shape[-1] - 1
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)

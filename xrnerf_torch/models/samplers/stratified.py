@@ -7,6 +7,8 @@ from typing import Optional
 
 import torch
 
+from ...parallel.mesh import draw
+
 
 def sample_along_rays(
     near: torch.Tensor,  # [N, 1]
@@ -27,7 +29,7 @@ def sample_along_rays(
         mids = 0.5 * (z[..., 1:] + z[..., :-1])
         upper = torch.cat([mids, z[..., -1:]], -1)
         lower = torch.cat([z[..., :1], mids], -1)
-        u = torch.rand(z.shape, generator=generator, dtype=z.dtype, device=z.device)
+        u = draw(torch.rand, z.shape, generator, dtype=z.dtype, device=z.device)
         z = lower + (upper - lower) * u
     return z
 

@@ -5,8 +5,19 @@ Port of ``xrnerf_tpu/ops/pallas/scatter_rows.py:scatter_add_rows``. The
 kernel is the hand-written CUDA ``xrnerf_torch/csrc/scatter_rows.cu``: one
 launch scatters a stack of levels, each level in the mode that
 :func:`level_modes` picks (its source note gives the design). The JAX
-package's sorted-segment path and its mesh (``set_scatter_mesh``) are
-workarounds for a slow scatter and a multi-chip matter; neither is here.
+package's sorted-segment path is a workaround for a slow scatter and is not
+here. Its mesh route (``set_scatter_mesh``: a shard-local scatter per chip
+and one ``psum`` of the partial tables) has two counterparts, with the same
+kernel and no other:
+
+- data axis: each rank scatters its own rows into a full local table (one
+  launch, as on one card), and the trainer's gradient all-reduce over the
+  data group is the sum of the partial tables;
+- model axis: a rank that holds rows ``[offset, offset + T_m)`` of each
+  level's table scatters ``idx - offset`` into a ``T_m``-row table with the
+  level row counts :func:`shard_rows` gives; the kernel drops every id
+  below 0 or at or past its level's count, so each rank adds exactly the
+  rows of its slice.
 
 - :func:`scatter_add_rows_levels` scatters ``[L, M]`` ids and ``[L, M, W]``
   rows into ``[L, T, W]`` in one launch: the encodings' backward. The plain
@@ -56,6 +67,12 @@ def level_modes(rows_per_level: Sequence[int], width: int) -> list:
     if width != 2:
         return [PLAIN] * len(rows_per_level)
     return [SHARED if r * width * 4 <= SHARED_TABLE_BYTES else AGGREGATE for r in rows_per_level]
+
+
+def shard_rows(rows_per_level: Sequence[int], offset: int, rows: int) -> list:
+    """Each level's row count inside the slice ``[offset, offset + rows)`` of
+    a table whose level l holds ``rows_per_level[l]`` rows."""
+    return [min(max(int(r) - offset, 0), rows) for r in rows_per_level]
 
 
 def scatter_add_rows_plain(idx: torch.Tensor, vals: torch.Tensor, num_rows: int, skip_zero_rows: bool = False) -> torch.Tensor:

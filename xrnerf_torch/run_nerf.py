@@ -7,6 +7,14 @@
 Flags are those of the top-level ``run_nerf.py`` plus ``--device``
 (default ``cuda``; raises without a card unless ``--device cpu``). On the
 card it first calls ``utils.device.configure_card`` (f32 math, TF32 off).
+
+Multi-GPU, one process per card (NCCL), each rank on ``cuda:LOCAL_RANK``:
+
+    torchrun --nproc_per_node 4 -m xrnerf_torch.run_nerf --config ... [--n_model_shards 2]
+
+It joins the process group first (``parallel.mesh.init_distributed``, from
+torchrun's environment; gloo with ``--device cpu``) and trains over a
+('data', 'model') mesh whenever the world holds more than one rank.
 Without ``--test_only``/``--render_only`` it trains (``Trainer.run``) with
 the config's optimizer, intervals, hooks and ``ema_decay``;
 ``--test_only`` writes ``<work_dir>/test/test_results.json``;
@@ -28,18 +36,21 @@ def parse_args(argv=None):
     p.add_argument("--resume_from", default=None, help="full checkpoint to resume")
     p.add_argument("--work_dir", default=None, help="override cfg.work_dir")
     p.add_argument("--max_iters", type=int, default=None, help="override cfg.max_iters")
-    p.add_argument("--n_model_shards", type=int, default=1, help="model-axis size (multi-GPU is not ported yet)")
+    p.add_argument("--n_model_shards", type=int, default=1, help="model-axis size of the device mesh")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda", help="where to run")
     return p.parse_args(argv)
 
 
 def build_from_config(cfg, args):
+    import torch.distributed as dist
+
     from xrnerf_torch import build_dataset, build_network
     from xrnerf_torch.core.trainer import Trainer, build_hooks
+    from xrnerf_torch.parallel.mesh import local_device, make_mesh
 
-    if args.n_model_shards != 1:
-        raise NotImplementedError("multi-GPU meshes are ported in a later slice")
-    network = build_network(cfg["model"], device=args.device)
+    device = local_device(args.device)
+    mesh = make_mesh(n_model=args.n_model_shards) if dist.is_initialized() and dist.get_world_size() > 1 else None
+    network = build_network(cfg["model"], device=device)
     dataset = build_dataset(cfg["data"])
     return Trainer(
         network,
@@ -56,7 +67,8 @@ def build_from_config(cfg, args):
         resume_from=args.resume_from or cfg.get("resume_from"),
         load_from=args.load_from or cfg.get("load_from"),
         ema_decay=cfg.get("ema_decay", 0.0),
-        device=args.device,
+        device=device,
+        mesh=mesh,
     )
 
 
@@ -65,8 +77,10 @@ def main(argv=None):
     from xrnerf_torch import load_config
     from xrnerf_torch.core.hooks import SaveSpiralHook, TestHook
 
+    from xrnerf_torch.parallel.mesh import init_distributed
     from xrnerf_torch.utils.device import configure_card
 
+    init_distributed(backend="gloo" if args.device == "cpu" else None)
     cfg = load_config(args.config, dataname=args.dataname)
     if args.device == "cuda":
         configure_card()

@@ -4,7 +4,10 @@
 optimizer, scheduler, EMA and step, as the trainer passes them; a network's
 buffers, such as Instant-NGP's occupancy grid, ride in its state dict), through a
 temporary file and an atomic ``os.replace``, and keeps the last ``keep``
-checkpoints. ``load`` reads one back onto ``map_location``. Reading the JAX
+checkpoints. Under a process group only global rank 0 writes (the trainer
+hands it full tensors: ``Trainer.save_checkpoint`` gathers the model axis's
+slices first); the others return the path. ``load`` reads one back onto
+``map_location``. Reading the JAX
 package's ``.msgpack`` checkpoints is not ported (the card's machine has
 no ``msgpack``).
 """
@@ -17,12 +20,16 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..parallel.mesh import is_main
+
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
 def save(work_dir: str, step: int, state: Dict[str, Any], keep: int = 3) -> str:
-    os.makedirs(work_dir, exist_ok=True)
     path = os.path.join(work_dir, f"ckpt_{step}.pt")
+    if not is_main():
+        return path
+    os.makedirs(work_dir, exist_ok=True)
     tmp = path + ".tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)

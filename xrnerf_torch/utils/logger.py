@@ -12,13 +12,9 @@ import os
 import sys
 from typing import Optional
 
+from ..parallel.mesh import is_main
+
 _INITIALIZED: set[str] = set()
-
-
-def _is_main() -> bool:
-    import torch.distributed as dist
-
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def get_logger(
@@ -30,9 +26,9 @@ def get_logger(
     if name in _INITIALIZED:
         return logger
 
-    is_main = _is_main()
+    main = is_main()
     handlers: list[logging.Handler] = [logging.StreamHandler(sys.stdout)]
-    if log_file is not None and is_main:
+    if log_file is not None and main:
         os.makedirs(os.path.dirname(os.path.abspath(log_file)), exist_ok=True)
         handlers.append(logging.FileHandler(log_file, "a"))
 
@@ -40,7 +36,7 @@ def get_logger(
     for h in handlers:
         h.setFormatter(fmt)
         logger.addHandler(h)
-    logger.setLevel(level if is_main else logging.ERROR)
+    logger.setLevel(level if main else logging.ERROR)
     logger.propagate = False
     _INITIALIZED.add(name)
     return logger
