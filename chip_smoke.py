@@ -253,7 +253,27 @@ Phases, each printed as one JSON line:
              two ranks sharing one card (not a scaling figure). With two or
              more cards, also NCCL with one rank per card: the same checks
              (and, for an even count, the n_model 2 step), untimed.
-32. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+32. files  - the port's CLI (``run_nerf.main``) on files, in a temporary
+             working directory: ``make_synthetic_blender`` writes an 800x800
+             blender scene through ``utils/png.py:imwrite_png`` (4 train, 1
+             val, 1 test view), which the loader reads back bit-equal; one
+             800x800 RGBA image written with each row filter 0-4 decodes to
+             itself (ms per decode); vanilla NeRF
+             (``configs/nerf/nerf_blender.py``, fused) trains 20 steps with
+             ``ValidateHook`` (finite losses; its PNG equals ``to8b`` of the
+             frame); vanilla NeRF and Instant-NGP
+             (``configs/instant_ngp/ngp_blender.py``, fused, the fresh
+             ``init_aux`` grid) serve the test view with ``--test_only
+             --load_from ckpt_0.msgpack``, seeded weights in the JAX trainer's
+             layout written by ``utils/flax_msgpack.py:packb`` (every
+             parameter bit-equal, the frame bit-equal to the one from the same
+             weights as a ``.pt`` file, ``test_0.png`` and the JSON PSNR, a
+             32x32 crop against the CPU >= 40 dB); Instant-NGP trains 8 steps
+             from the ``.msgpack`` file; LPIPS (random VGG16-shaped weights
+             from a local file) on the card against the CPU on the vanilla
+             test frame, relative difference <= 1e-4. Rows 1-7 must each
+             launch on the phase's path; its launches join the kernels line.
+33. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
              A line before it gives the script's total seconds.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
@@ -271,6 +291,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -1701,7 +1722,7 @@ def mip_phases(work_dir):
     ys = slice(H // 2 - 16, H // 2 + 16)
     crop = {k: v.reshape(H, H, -1)[ys, ys].reshape(-1, v.shape[-1]) for k, v in rays.items()}
     t0 = time.perf_counter()
-    cpu_out = render_image(cpu_net, crop, 32, 32, chunk=int(cfg["eval_chunk"]))
+    cpu_out = render_image(cpu_net, crop, 32, 32, chunk=32 * 32)  # one chunk: no padding rays to render
     cpu_s = time.perf_counter() - t0
     crop_psnr = float(psnr(out["rgb"][ys, ys], cpu_out["rgb"]))
     if not crop_psnr >= 40.0:
@@ -3308,6 +3329,299 @@ def multi_phase(work_dir):
 
 
 
+FILES_SCENE = "sphere"  # data/nerf_synthetic/<name> in the phase's working directory
+FILES_VIEWS = dict(n_train=4, n_val=1, n_test=1)
+FILES_SIZE = 800  # the lego camera's images
+FILES_NERF_STEPS = 20  # the last one an eval slot: ValidateHook writes val_20/val_0.png
+FILES_NGP_STEPS = 8
+FILES_DECODE_REPS = 5
+FILES_FRAME_REPS = 3  # renders of a served test view; frame_ms is their median
+FILES_CROP = 32  # the centre crop held against the CPU plain path
+FILES_MAIN_STAGES = ("nerf_train", "nerf_test", "ngp_test", "ngp_train")  # the CLI runs; the rest are checks
+FILES_LPIPS_RTOL = 1e-4
+VGG16_CONVS = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)  # vgg16.features' conv widths
+VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+LPIPS_LIN_WIDTHS = (64, 128, 256, 512, 512)
+
+
+def png_with_filter(img, ftype):
+    """PNG bytes of a uint8 [H, W, C] image with every row filtered by
+    ``ftype`` (0-4), the predictions made in numpy from the known pixels."""
+    from xrnerf_torch.utils.png import SIGNATURE
+
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    left, up, upleft = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    left[:, c:], up[1:], upleft[1:, c:] = x[:, :-c], x[:-1], x[:-1, :-c]
+    if ftype == 4:
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    else:
+        pred = (0, left, up, (left + up) // 2)[ftype]
+    rows = np.concatenate([np.full((h, 1), ftype, np.uint8), ((x - pred) % 256).astype(np.uint8)], axis=1)
+
+    def chunk(ctype, body):
+        return len(body).to_bytes(4, "big") + ctype + body + zlib.crc32(ctype + body).to_bytes(4, "big")
+
+    ihdr = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, {1: 0, 2: 4, 3: 2, 4: 6}[c], 0, 0, 0])
+    return SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b"")
+
+
+def config_copy(src, path, lines):
+    """A config file: ``src``'s text with ``lines`` appended (overrides)."""
+    with open(os.path.join(ROOT, src)) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write(text + "\n" + "\n".join(lines) + "\n")
+    return path
+
+
+def write_jax_checkpoint(path, state_dict):
+    """The JAX trainer's checkpoint layout (``{"state": {"step", "params"},
+    "aux"}``) of a port state dict's parameters, in flax's msgpack format."""
+    from xrnerf_torch.utils import flax_msgpack
+    from xrnerf_torch.utils.weights import jax_params_from_state_dict
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tree = {"aux": None, "state": {"params": jax_params_from_state_dict(state_dict), "step": np.asarray(0)}}
+    with open(path, "wb") as f:
+        f.write(flax_msgpack.packb(tree))
+    return path
+
+
+def lpips_weights(path, seed=SEED):
+    """A random state dict in the shape of LPIPS's VGG16 (13 convs, He
+    scaled, small biases, 5 ``lin`` layers), saved to ``path``."""
+    g = torch.Generator().manual_seed(seed)
+    sd, cin = {}, 3
+    for idx, cout in zip(VGG16_CONV_IDX, VGG16_CONVS):
+        sd[f"features.{idx}.weight"] = torch.randn(cout, cin, 3, 3, generator=g) * math.sqrt(2.0 / (9 * cin))
+        sd[f"features.{idx}.bias"] = 0.01 * torch.randn(cout, generator=g)
+        cin = cout
+    for i, c in enumerate(LPIPS_LIN_WIDTHS):
+        sd[f"lin{i}.weight"] = torch.rand(c, generator=g)
+    torch.save(sd, path)
+    return path
+
+
+def served_frame_checks(what, tr, net_sd, pt_path, model_cfg, chunk, crop_from_frame):
+    """The checks of a ``--test_only`` run from a ``.msgpack`` file: every
+    parameter equal to ``net_sd``, the test frame equal bit for bit to the
+    one rendered from the same weights through a ``.pt`` file, ``test_0.png``
+    equal to its ``to8b``, ``test_results.json``'s PSNR equal to the one
+    computed here, and a ``FILES_CROP`` square centre crop against the CPU
+    plain path (>= 40 dB); ``crop_from_frame``: the crop is cut from the
+    frame and the CPU renders it as one chunk (a vanilla ray's render is its
+    own), else both render it alone at ``chunk`` (for a network whose chunks
+    compact to a sample budget). ``frame_ms`` is the median of
+    ``FILES_FRAME_REPS`` renders of the test view."""
+    from xrnerf_torch import build_network
+    from xrnerf_torch.core.renderer import render_image
+    from xrnerf_torch.core.trainer import Trainer
+    from xrnerf_torch.utils.metrics import psnr, to8b
+    from xrnerf_torch.utils.png import imread_png
+
+    sd = {k: v.detach().cpu().numpy() for k, v in tr.network.named_parameters()}
+    if sorted(sd) != sorted(k for k in net_sd if k not in ("grid_density", "grid_bitfield")):
+        raise AssertionError(f"{what}: parameters {sorted(sd)} differ from the file's")
+    for k, v in sd.items():
+        if v.tobytes() != np.asarray(net_sd[k], np.float32).tobytes():
+            raise AssertionError(f"{what}: {k} differs from the seeded weights")
+    rays, gt = tr.dataset.eval_item(int(tr.dataset.i_test[0]))
+    size, frame_ms = FILES_SIZE, []
+    for _ in range(FILES_FRAME_REPS):
+        t0 = time.perf_counter()
+        frame = tr.render_image(rays, size, size)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in net_sd.items()}, pt_path)
+    ptr = Trainer(build_network(model_cfg, device="cuda"), tr.dataset, work_dir=None, eval_chunk=chunk,
+                  load_from=pt_path, device="cuda")
+    pt_frame = ptr.render_image(rays, size, size)
+    for k, v in frame.items():
+        if not np.isfinite(v).all() or not np.array_equal(v, pt_frame[k]):
+            raise AssertionError(f"{what}: {k} from the .msgpack file differs from the .pt file's, or is not finite")
+    png = imread_png(os.path.join(tr.work_dir, "test", "test_0.png"))
+    if not np.array_equal(png, to8b(frame["rgb"])):
+        raise AssertionError(f"{what}: test_0.png is not to8b of the test frame")
+    with open(os.path.join(tr.work_dir, "test", "test_results.json")) as f:
+        file_psnr = json.load(f)["psnr"]["0"]
+    mem_psnr = float(psnr(frame["rgb"], gt))
+    if file_psnr != mem_psnr:
+        raise AssertionError(f"{what}: test_results.json PSNR {file_psnr} != {mem_psnr} computed from the frame")
+    cpu_net = build_network(model_cfg, device="cpu")
+    cpu_net.load_state_dict(torch.load(pt_path, map_location="cpu", weights_only=True))
+    crop = FILES_CROP
+    ys = slice(size // 2 - crop // 2, size // 2 + crop // 2)
+    crop_rays = {k: v.reshape(size, size, -1)[ys, ys].reshape(-1, v.shape[-1]) for k, v in rays.items()}
+    card_crop = frame["rgb"][ys, ys] if crop_from_frame else tr.render_image(crop_rays, crop, crop)["rgb"]
+    t0 = time.perf_counter()
+    cpu_chunk = crop * crop if crop_from_frame else chunk
+    crop_psnr = float(psnr(card_crop, render_image(cpu_net, crop_rays, crop, crop, chunk=cpu_chunk)["rgb"]))
+    cpu_crop_s = time.perf_counter() - t0
+    if not crop_psnr >= 40.0:
+        raise AssertionError(f"{what}: card vs CPU plain path on the {crop}x{crop} crop: {crop_psnr} dB < 40 dB")
+    del ptr
+    return frame, gt, {"frame_ms": float(np.median(frame_ms)), "frame_ms_samples": frame_ms,
+                       "crop": crop, "cpu_crop_s": cpu_crop_s, "test_psnr_db": file_psnr, "crop_psnr_vs_cpu_db": crop_psnr,
+                       "rgb_mean": float(frame["rgb"].mean()), "frame_equals_pt_frame": True}
+
+
+def files_phase(work_dir):
+    """32. The port's CLI on files: a PNG scene written and read back, vanilla
+    NeRF trained with ``ValidateHook``, vanilla NeRF and Instant-NGP served
+    from JAX-format ``.msgpack`` checkpoints, NGP trained from one, LPIPS.
+    The main path is the four CLI runs (``FILES_MAIN_STAGES``); the launches of the
+    checks after each are kept apart, in ``launches_by_stage`` only."""
+    from xrnerf_torch import build_network, load_config, run_nerf
+    from xrnerf_torch.datasets.load.blender import load_blender_data
+    from xrnerf_torch.datasets.load.synthetic import _trace_sphere, make_synthetic_blender
+    from xrnerf_torch.utils.metrics import LPIPS, to8b
+    from xrnerf_torch.utils.png import decode_png, imread_png
+    from xrnerf_torch.utils.weights import state_dict_from_jax
+
+    size = FILES_SIZE
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    line = {"phase": "files", "scene": f"data/nerf_synthetic/{FILES_SCENE}", "size": size, "views": FILES_VIEWS}
+    launches, stage_s, t_stage = {}, {}, [t_phase]
+
+    def stage(name):  # launches of each counter and host seconds since the last stage
+        launches[name] = {k: f.launches for k, f in counters.items()}
+        for f in counters.values():
+            f.launches = 0
+        stage_s[name] = time.perf_counter() - t_stage[0]
+        t_stage[0] = time.perf_counter()
+
+    cwd = os.getcwd()
+    os.chdir(work_dir)
+    try:
+        for f in counters.values():
+            f.launches = 0  # the main path starts here
+        # 1. a PNG scene written by the port's maker and read back by its loader
+        t0 = time.perf_counter()
+        scene = make_synthetic_blender(os.path.join("data", "nerf_synthetic", FILES_SCENE), H=size, W=size,
+                                       **FILES_VIEWS)
+        line["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        imgs, poses, _, hwf, _ = load_blender_data(scene)
+        line["read_s"] = time.perf_counter() - t0
+        traced = np.stack([_trace_sphere(size, size, hwf[2], p) for p in poses])
+        if not np.array_equal(imgs, (traced / 255.0).astype(np.float32)):
+            raise AssertionError("files: the loader's images differ from the traced ones written")
+        decode_ms = {}
+        for ftype in range(5):
+            data = png_with_filter(traced[0], ftype)
+            if not np.array_equal(decode_png(data), traced[0]):
+                raise AssertionError(f"files: filter {ftype} decodes to another image")
+            times = []
+            for _ in range(FILES_DECODE_REPS):
+                t0 = time.perf_counter()
+                decode_png(data)
+                times.append((time.perf_counter() - t0) * 1e3)
+            decode_ms[ftype] = {"ms": float(np.median(times)), "bytes": len(data)}
+        line["decode_rgba_png"] = {"H": size, "W": size, "per_filter": decode_ms}
+        dev = ["--dataname", FILES_SCENE, "--device", "cuda"]
+
+        # 2. vanilla NeRF trained through the CLI, ValidateHook writing a PNG
+        nerf_cfg = config_copy("configs/nerf/nerf_blender.py", "nerf_files.py", [
+            "model.update(fused=True)", f"eval_interval = {FILES_NERF_STEPS}", "log_interval = 10",
+            'hooks = [dict(type="ValidateHook", save_img=True, max_images=1)]'])
+        cfg = load_config(nerf_cfg, dataname=FILES_SCENE)
+        nerf_model, chunk = cfg["model"], int(cfg["eval_chunk"])
+        t0 = time.perf_counter()
+        tr = run_nerf.main(["--config", nerf_cfg, "--max_iters", str(FILES_NERF_STEPS), "--work_dir", "nerf_train"]
+                           + dev)
+        line["nerf_train"] = {"config": "configs/nerf/nerf_blender.py", "fused": True, "steps": tr.step,
+                              "seconds": time.perf_counter() - t0, "last_window": tr.last_logs}
+        stage("nerf_train")
+        if tr.step != FILES_NERF_STEPS or not all(math.isfinite(v) for v in tr.last_logs.values()):
+            raise AssertionError(f"files: CLI training reached step {tr.step}, logs {tr.last_logs}")
+        vrays, vgt = tr.dataset.eval_item(int(tr.dataset.i_val[0]))
+        side = np.concatenate([to8b(tr.render_image(vrays, size, size)["rgb"]), to8b(vgt)], axis=1)
+        if not np.array_equal(imread_png(os.path.join("nerf_train", f"val_{FILES_NERF_STEPS}", "val_0.png")), side):
+            raise AssertionError("files: val_0.png is not to8b of the frame ValidateHook rendered")
+        del tr
+        stage("nerf_train_checks")
+
+        # 3. vanilla NeRF served from a JAX-format checkpoint
+        m = nerf_model
+        rng = np.random.RandomState(SEED + 13)
+        tree = {f"mlp_{c}": seeded_mlp_tree(rng, 3 + 6 * m["multires"], 3 + 6 * m["multires_dirs"], m["netwidth"])
+                for c in ("coarse", "fine")}
+        nerf_sd = state_dict_from_jax(tree)
+        ckpt_path = write_jax_checkpoint(os.path.join(work_dir, "nerf_jax", "ckpt_0.msgpack"), nerf_sd)
+        t0 = time.perf_counter()
+        tr = run_nerf.main(["--config", nerf_cfg, "--test_only", "--load_from", ckpt_path, "--work_dir", "nerf_test"]
+                           + dev)
+        cli_s = time.perf_counter() - t0
+        stage("nerf_test")
+        frame, gt, checks = served_frame_checks("files nerf", tr, nerf_sd, os.path.join(work_dir, "nerf.pt"),
+                                                nerf_model, chunk, crop_from_frame=True)
+        line["nerf_test"] = {"load_from": "ckpt_0.msgpack", "cli_s": cli_s, **checks}
+        del tr
+        stage("nerf_checks")
+
+        # 4. Instant-NGP served from a JAX-format checkpoint (the fresh init_aux grid), then trained from it
+        ngp_cfg = config_copy("configs/instant_ngp/ngp_blender.py", "ngp_files.py", [
+            "model.update(fused=True)", "hooks = []", "eval_interval = 0", "ckpt_interval = 0", "log_interval = 4"])
+        cfg = load_config(ngp_cfg, dataname=FILES_SCENE)
+        ngp_model, ngp_chunk = cfg["model"], int(cfg["eval_chunk"])
+        seeded = build_network(ngp_model, device="cpu")
+        seeded.reset_parameters(torch.Generator().manual_seed(SEED + 14))
+        with torch.no_grad():
+            seeded.field.encoding.table.mul_(NGP_TABLE_SCALE)
+        ngp_sd = {k: v.detach().numpy() for k, v in seeded.named_parameters()}
+        ckpt_path = write_jax_checkpoint(os.path.join(work_dir, "ngp_jax", "ckpt_0.msgpack"), ngp_sd)
+        t0 = time.perf_counter()
+        tr = run_nerf.main(["--config", ngp_cfg, "--test_only", "--load_from", ckpt_path, "--work_dir", "ngp_test"]
+                           + dev)
+        cli_s = time.perf_counter() - t0
+        stage("ngp_test")
+        fresh = build_network(ngp_model, device="cuda")
+        fresh.init_aux(tr.dataset)
+        for k in ("grid_density", "grid_bitfield"):
+            if not torch.equal(tr.network.state_dict()[k], fresh.state_dict()[k]):
+                raise AssertionError(f"files ngp: {k} is not the fresh init_aux grid")
+            ngp_sd[k] = fresh.state_dict()[k].cpu().numpy()
+        _, _, checks = served_frame_checks("files ngp", tr, ngp_sd, os.path.join(work_dir, "ngp.pt"), ngp_model,
+                                           ngp_chunk, crop_from_frame=False)
+        line["ngp_test"] = {"load_from": "ckpt_0.msgpack", "aux": "init_aux", "cli_s": cli_s, **checks}
+        del tr, fresh
+        stage("ngp_checks")
+        t0 = time.perf_counter()
+        tr = run_nerf.main(["--config", ngp_cfg, "--load_from", ckpt_path, "--max_iters", str(FILES_NGP_STEPS),
+                            "--work_dir", "ngp_train"] + dev)
+        line["ngp_train"] = {"config": "configs/instant_ngp/ngp_blender.py", "fused": True, "steps": tr.step,
+                             "seconds": time.perf_counter() - t0, "last_window": tr.last_logs}
+        if tr.step != FILES_NGP_STEPS or not all(math.isfinite(v) for v in tr.last_logs.values()):
+            raise AssertionError(f"files: NGP CLI training reached step {tr.step}, logs {tr.last_logs}")
+        del tr
+        stage("ngp_train")
+    finally:
+        os.chdir(cwd)
+
+    # 5. LPIPS on the card against the CPU, the vanilla test frame against its ground truth
+    path = lpips_weights(os.path.join(work_dir, "vgg16_random.pt"))
+    t0 = time.perf_counter()
+    on_card = LPIPS(path, device="cuda")(frame["rgb"], gt)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = LPIPS(path, device="cpu")(frame["rgb"], gt)
+    cpu_s = time.perf_counter() - t0
+    rel = abs(on_card - on_cpu) / abs(on_cpu)
+    if not rel <= FILES_LPIPS_RTOL:
+        raise AssertionError(f"files: LPIPS card {on_card} vs CPU {on_cpu}: relative difference {rel}")
+    line["lpips"] = {"card": on_card, "cpu": on_cpu, "rel_diff": rel, "card_s": card_s, "cpu_s": cpu_s}
+
+    total = {k: sum(launches[s][k] for s in FILES_MAIN_STAGES) for k in counters}
+    missing = [k for k in counters if k != "scatter_add_rows_one_level" and not total[k]]
+    if missing or total["scatter_add_rows_one_level"]:
+        raise AssertionError(f"files: no launch of {missing} on the phase's path, or a one-level scatter: {total}")
+    line.update(launches_by_stage=launches, seconds_by_stage=stage_s, launches=total, seconds=time.perf_counter() - t_phase)
+    return line
+
+
 def nerf_counters():
     """The launch counters of the two vanilla-NeRF kernels."""
     from xrnerf_torch.ops import fused_nerf_mlp as fm
@@ -3442,7 +3756,7 @@ def main() -> int:
     ys = slice(H // 2 - 16, H // 2 + 16)
     crop = {k: v.reshape(H, W, -1)[ys, ys].reshape(-1, v.shape[-1]) for k, v in rays.items()}
     t0 = time.perf_counter()
-    cpu_out = render_image(cpu_net, crop, 32, 32, chunk=chunk)
+    cpu_out = render_image(cpu_net, crop, 32, 32, chunk=32 * 32)  # one chunk: no padding rays to render
     cpu_s = time.perf_counter() - t0
     crop_psnr = float(psnr(out["rgb"][ys, ys], cpu_out["rgb"]))
     if not crop_psnr >= 40.0:
@@ -3534,33 +3848,44 @@ def main() -> int:
         emit(multi)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+
+    # 32. files: the CLI on a PNG scene and on JAX-format checkpoints
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        files = files_phase(work_dir)
+        emit(files)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
     check_card_flags("end")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
-    # 32. kernels
+    # 33. kernels
     k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
     keys = ("rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": "fused_nerf_mlp_fwd", "route": "cuda", "source": "xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu",
          "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:150",
          "launches": main_path_launches + train_launches["fused_nerf_mlp_fwd"] + kilo_launches
-         + multi["launches"]["fused_nerf_mlp_fwd"],
+         + multi["launches"]["fused_nerf_mlp_fwd"] + files["launches"]["fused_nerf_mlp_fwd"],
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()), **{k: k1[k] for k in keys}},
         {"name": "fused_nerf_mlp_bwd", "route": "cuda", "source": "xrnerf_torch/csrc/fused_nerf_mlp_bwd.cu",
          "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:159",
-         "launches": train_launches["fused_nerf_mlp_bwd"] + multi["launches"]["fused_nerf_mlp_bwd"],
+         "launches": train_launches["fused_nerf_mlp_bwd"] + multi["launches"]["fused_nerf_mlp_bwd"]
+         + files["launches"]["fused_nerf_mlp_bwd"],
          "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
          "min_cos": min(r["min_cos"] for r in bwd_rows.values()), **{k: b1[k] for k in keys}},
         *({"name": name, "route": "cuda", "source": f"xrnerf_torch/csrc/fused_mlp_{name[-3:]}.cu",
            "replaces": f"xrnerf_tpu/ops/pallas/fused_mlp.py:{line}",
-           "launches": ngp_launches.get(name, 0) + ngp_train_launches[name] + multi["launches"][name],
+           "launches": ngp_launches.get(name, 0) + ngp_train_launches[name] + multi["launches"][name]
+           + files["launches"][name],
            "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
            **{k: rows[name][262_144][k] for k in keys}}
           for name, line, rows in (("fused_mlp2_fwd", 64, tiny_rows), ("fused_mlp2_bwd", 77, tiny_bwd_rows),
                                    ("fused_mlp3_fwd", 184, tiny_rows), ("fused_mlp3_bwd", 202, tiny_bwd_rows))),
         {"name": "scatter_add_rows", "route": "cuda", "source": "xrnerf_torch/csrc/scatter_rows.cu",
          "replaces": "xrnerf_tpu/ops/pallas/scatter_rows.py:62",
-         "launches": ngp_train_launches["scatter_add_rows"] + multi["launches"]["scatter_add_rows"],
+         "launches": ngp_train_launches["scatter_add_rows"] + multi["launches"]["scatter_add_rows"]
+         + files["launches"]["scatter_add_rows"],
          "max_abs_err": max(r["max_abs_err"] for r in scatter_rows.values()),
          **{k: scatter_rows["vertex_step"][k] for k in keys}, "levels": scatter_rows["vertex_step"]["levels"],
          "other_shapes": {c: {k: r[k] for k in ("rows", "width", "num_rows", "ms", "plain_ms", "bound_ms", "library_ms")}

@@ -6,7 +6,9 @@ distill -> finetune (the port's counterpart of ``tools/kilonerf_pipeline.py``).
         --finetune_cfg configs/kilonerf/kilonerf_finetune.py --dataname lego --fused
 
 1. pretrain: ``xrnerf_torch.run_nerf`` trains the vanilla NeRF of
-   ``--pretrain_cfg``; its latest checkpoint is the teacher, rebuilt with
+   ``--pretrain_cfg``; its latest checkpoint is the teacher (the port's
+   ``ckpt_N.pt``, or else the JAX package's ``ckpt_N.msgpack``, whose
+   parameters are read, as ``tools/kilonerf_pipeline.py`` reads them), rebuilt with
    ``fused=True`` when ``--fused`` is given (the hand-written forward kernel
    on the card, as ``chip_smoke.py`` builds its vanilla networks).
 2. occupancy: the teacher's density swept over the finetune config's domain
@@ -55,16 +57,17 @@ def parse_args(argv=None):
 
 
 def load_teacher(cfg_path: str, dataname: str, ckpt_path: str, fused: bool = False, device="cuda"):
-    """The pretrained ``NerfNetwork`` from a checkpoint (or a weights file)
-    and its point-wise field: ``teacher_fn(pts, dirs) -> (rgb, sigma)``."""
+    """The pretrained ``NerfNetwork`` from a checkpoint (or a weights file;
+    ``.pt``, or the JAX package's ``.msgpack``) and its point-wise field:
+    ``teacher_fn(pts, dirs) -> (rgb, sigma)``."""
     import torch
 
     from xrnerf_torch import build_network, load_config
+    from xrnerf_torch.utils.checkpoint import load_weights
 
     cfg = load_config(cfg_path, dataname=dataname)
     net = build_network(dict(cfg["model"], fused=fused), device=device)
-    state = torch.load(ckpt_path, map_location=device, weights_only=True)
-    net.load_state_dict(state.get("model", state))
+    load_weights(net, ckpt_path)
     net.eval()
 
     def teacher_fn(pts, dirs):
@@ -100,7 +103,7 @@ def main(argv=None):
     pre_work = pre_cfg.get("work_dir", "./work_dirs/nerf/" + args.dataname)
     if not args.skip_pretrain:
         run_nerf.main(["--config", args.pretrain_cfg, "--dataname", args.dataname] + dev)
-    teacher_ckpt = ckptmod.latest_path(pre_work)
+    teacher_ckpt = ckptmod.latest_path(pre_work) or ckptmod.latest_path(pre_work, ext=".msgpack")
     assert teacher_ckpt, f"no pretrain checkpoint in {pre_work}"
 
     fin_cfg = load_config(args.finetune_cfg, dataname=args.dataname)

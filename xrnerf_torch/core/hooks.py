@@ -1,7 +1,8 @@
 """Hook protocol + the standard hooks — port of ``xrnerf_tpu/core/hooks.py``
 (``ValidateHook``, ``TestHook``, ``SaveSpiralHook``, ``OccupationHook``,
 ``ElapsedTimeHook``, ``ProfileHook``, ``SampleBudgetHook``). Images are written only when
-``save_img`` is set, and ``imageio`` is imported only then. Under a mesh every
+``save_img`` is set: pngs by ``utils/png.py:imwrite_png`` (no ``imageio``), the
+spiral's mp4 or gif through ``imageio``, imported only then. Under a mesh every
 rank renders (the renderer shares the chunks out) and only global rank 0
 (``parallel.mesh.is_main``) writes images, JSON and traces or reads the kill switch.
 """
@@ -21,6 +22,7 @@ from ..parallel.mesh import is_main
 from ..registry import HOOKS
 from ..utils.logger import get_logger
 from ..utils.metrics import psnr, ssim, to8b
+from ..utils.png import imwrite_png
 
 if TYPE_CHECKING:  # pragma: no cover
     from .trainer import Trainer
@@ -58,11 +60,9 @@ class ValidateHook(Hook):
             psnrs.append(float(psnr(ret["rgb"], gt)))
             ssims.append(float(ssim(ret["rgb"], gt)))
             if self.save_img and is_main():
-                import imageio.v2 as imageio
-
                 os.makedirs(out_dir, exist_ok=True)
                 side = np.concatenate([to8b(ret["rgb"]), to8b(gt)], axis=1)
-                imageio.imwrite(os.path.join(out_dir, f"val_{n}.png"), side)
+                imwrite_png(os.path.join(out_dir, f"val_{n}.png"), side)
         get_logger().info(
             "[eval %d] val PSNR %.3f SSIM %.4f (%d imgs)",
             step, float(np.mean(psnrs)), float(np.mean(ssims)), len(idxs),
@@ -93,9 +93,7 @@ class TestHook(Hook):
             per_scale[s].append(float(psnr(ret["rgb"], gt)))
             per_scale_ssim[s].append(float(ssim(ret["rgb"], gt)))
             if self.save_img and is_main():
-                import imageio.v2 as imageio
-
-                imageio.imwrite(os.path.join(out_dir, f"test_{n}.png"), to8b(ret["rgb"]))
+                imwrite_png(os.path.join(out_dir, f"test_{n}.png"), to8b(ret["rgb"]))
         results = {
             "psnr": {s: float(np.mean(v)) for s, v in per_scale.items() if v},
             "ssim": {s: float(np.mean(v)) for s, v in per_scale_ssim.items() if v},

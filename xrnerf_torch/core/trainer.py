@@ -8,7 +8,9 @@ from ``seed`` with flax's distributions, builds the optimizer and learning
 rate schedule (same values per step as the JAX package's optax chain), and
 optionally resumes a checkpoint (``resume_from``: step, model, optimizer,
 scheduler, EMA) or loads weights (``load_from``: a ``.pt`` state dict, or
-the model of a checkpoint).
+the model of a checkpoint; or a JAX-package ``.msgpack`` checkpoint, whose
+parameters alone are read, as the JAX trainer reads them:
+``utils/checkpoint.py:load_weights``).
 
 Each step draws its randomness from a generator on the network's device
 seeded from ``(seed, step)``, so a resumed run takes the steps a straight
@@ -198,6 +200,9 @@ class Trainer:
         self.start_step = 0
 
         if resume_from:
+            if str(resume_from).endswith(".msgpack"):
+                raise ValueError(f"{resume_from}: a JAX-package checkpoint cannot be resumed (its optax state has no "
+                                 "torch counterpart here); load its parameters with load_from")
             state = ckpt.load(resume_from, map_location=self.device)
             self.network.load_state_dict(pm.local_state(state["model"], self.sharded, mesh))
             self.optimizer.load_state_dict(self._optimizer_state(state["optimizer"], pm.take_shard))
@@ -205,9 +210,8 @@ class Trainer:
             self.start_step = int(state["step"])
             self.logger.info("resumed from %s at step %d", resume_from, self.start_step)
         elif load_from:
-            sd = torch.load(load_from, map_location=self.device, weights_only=True)
-            # a weights file, or a trainer checkpoint (its "model"), as JAX's load_from reads either
-            self.network.load_state_dict(pm.local_state(sd.get("model", sd.get("state_dict", sd)), self.sharded, mesh))
+            # a weights file or a trainer checkpoint (its "model"), or the JAX package's .msgpack (parameters only)
+            ckpt.load_weights(self.network, load_from, self.sharded, mesh)
             self.logger.info("loaded weights from %s", load_from)
         self.step = self.start_step
 

@@ -10,7 +10,8 @@ rasterised SMPL depth when present.
 Batches: ray segments ``rays_s`` / ``rays_e`` through pixels of the query
 view's mask, with the frame's context in ``ctx_*`` keys. ``arrays=`` builds
 the dataset in memory (tests, custom captures); otherwise it reads the
-on-disk layout (``imageio`` and PIL are imported only then). The same
+on-disk layout (PIL, which resizes the crops, is imported only then; images
+go through ``utils/png.py:imread``, PNGs without ``imageio``). The same
 arrays and step give the same batches as the JAX package.
 """
 
@@ -23,6 +24,7 @@ import numpy as np
 
 from ..models.renders.gnr_render import rays_perspective_np
 from ..registry import DATASETS
+from ..utils.png import imread
 
 
 def image_cropping(mask: np.ndarray):
@@ -146,8 +148,6 @@ class GeneBodyDataset:
     def _load_genebody(self, datadir, subject, f0, f1, skip):
         """Disk layout: root/subject/{annots.npy, image/<cam>/, mask/<cam>/,
         smpl_depth/<cam>/, param/, smpl/}; cams named '%02d'."""
-        import imageio.v2 as imageio
-
         root = os.path.join(datadir, subject)
         annots = np.load(
             os.path.join(root, "annots.npy"), allow_pickle=True
@@ -188,16 +188,14 @@ class GeneBodyDataset:
             if fi == 0:
                 self.smpl_faces = faces.astype(np.int32)
             for ci, cam in enumerate(cams):
-                img = np.asarray(
-                    imageio.imread(os.path.join(root, "image", cam, frame))
-                )
+                img = imread(os.path.join(root, "image", cam, frame))
                 mask_dir = os.path.join(root, "mask", cam)
                 mpath = [
                     os.path.join(mask_dir, f)
                     for f in os.listdir(mask_dir)
                     if stem in f
                 ][0]
-                m = np.asarray(imageio.imread(mpath))
+                m = imread(mpath)
                 if m.ndim == 3:
                     m = m[..., 0]
                 t, l, b, r = image_cropping(m)
@@ -224,7 +222,7 @@ class GeneBodyDataset:
                         if stem in f
                     ]
                     if dpath:
-                        dep = np.asarray(imageio.imread(dpath[0])).astype(
+                        dep = imread(dpath[0]).astype(
                             np.float32
                         ) / 1000.0
                         dep = np.asarray(

@@ -1,8 +1,8 @@
 """Blender (nerf_synthetic) scene loader — a copy of
 ``xrnerf_tpu/datasets/load/blender.py``: ``transforms_{train,val,test}.json``
 + RGBA pngs, optional ``half_res`` and ``testskip``, and a 40-pose spherical
-render path. ``imageio`` is imported only when an image is read;
-``half_res`` downscales with ``load/resize.py:area_resize`` (OpenCV's
+render path. Images are read by ``utils/png.py:imread`` (PNGs without
+``imageio``); ``half_res`` downscales with ``load/resize.py:area_resize`` (OpenCV's
 ``INTER_AREA`` in numpy), so it needs no ``cv2``.
 """
 
@@ -14,14 +14,9 @@ from typing import Tuple
 
 import numpy as np
 
+from ...utils.png import imread
 from ..rays import spherical_render_poses
 from .resize import area_resize
-
-
-def _imread(path: str) -> np.ndarray:
-    import imageio.v2 as imageio
-
-    return np.asarray(imageio.imread(path))
 
 
 def _half_res(imgs: np.ndarray) -> np.ndarray:
@@ -47,7 +42,7 @@ def load_blender_data(
         imgs, poses = [], []
         for frame in meta["frames"][::skip]:
             fname = os.path.join(basedir, frame["file_path"] + ".png")
-            imgs.append(_imread(fname))
+            imgs.append(imread(fname))
             poses.append(np.array(frame["transform_matrix"], dtype=np.float32))
         imgs = (np.stack(imgs) / 255.0).astype(np.float32)
         poses = np.stack(poses)

@@ -3,8 +3,8 @@
 directories, each with ``rgb/`` pngs and ``pose/`` txt 4x4 matrices
 (camera-to-world needing a y/z flip), one ``intrinsics.txt`` whose f/cx/cy
 are rescaled to the rendered side; the caller derives near/far from the
-mean camera radius (hemi_R +- 1). ``imageio`` is imported only when images
-are read.
+mean camera radius (hemi_R +- 1). The pngs are read by
+``utils/png.py:imread_png`` (no ``imageio``).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Tuple
 
 import numpy as np
 
+from ...utils.png import imread_png
 _FLIP_YZ = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
 
 
@@ -44,12 +45,10 @@ def _load_dv_poses(posedir: str) -> np.ndarray:
 
 
 def _load_dv_imgs(rgbdir: str, skip: int = 1) -> np.ndarray:
-    import imageio.v2 as imageio
-
     files = [f for f in sorted(os.listdir(rgbdir)) if f.endswith("png")]
     return np.stack(
         [
-            np.asarray(imageio.imread(os.path.join(rgbdir, f))) / 255.0
+            imread_png(os.path.join(rgbdir, f)) / 255.0
             for f in files[::skip]
         ]
     ).astype(np.float32)
@@ -64,11 +63,9 @@ def load_deepvoxels_data(
     the render side from the images (the reference hardcodes 512)."""
     base = os.path.join(datadir, "train", scene)
     if not side:
-        import imageio.v2 as imageio
-
         rgbdir = os.path.join(base, "rgb")
         first = sorted(f for f in os.listdir(rgbdir) if f.endswith("png"))[0]
-        side = int(np.asarray(imageio.imread(os.path.join(rgbdir, first))).shape[0])
+        side = int(imread_png(os.path.join(rgbdir, first)).shape[0])
     focal, cx, cy = _parse_dv_intrinsics(
         os.path.join(base, "intrinsics.txt"), side
     )

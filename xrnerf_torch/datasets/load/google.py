@@ -3,7 +3,8 @@
 ``poses_enu.json`` with llff-style [3, 5] pose rows (last column
 [H, W, focal]), ``scene_scale`` / ``scene_origin``, and ``scale_split``,
 the index where each progressive stage's cameras begin (stage 0 the
-farthest). ``imageio`` is imported only when an image is read.
+farthest). Images are read by ``utils/png.py:imread``: PNGs without
+``imageio``, JPEGs through it.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Tuple
 
 import numpy as np
 
+from ...utils.png import imread
 
 def _area_downscale(img: np.ndarray, factor: int) -> np.ndarray:
     h, w = img.shape[:2]
@@ -24,8 +26,6 @@ def _area_downscale(img: np.ndarray, factor: int) -> np.ndarray:
 def load_google_data(datadir: str, factor: int = 3) -> Tuple:
     """-> (imgs [N,H,W,C], poses [N,3,5], scene_scale, scene_origin [3],
     scale_split list)."""
-    import imageio.v2 as imageio
-
     imgdir = os.path.join(datadir, "images")
     files = [
         os.path.join(imgdir, f)
@@ -34,7 +34,7 @@ def load_google_data(datadir: str, factor: int = 3) -> Tuple:
     ]
     imgs = []
     for f in files:
-        im = np.asarray(imageio.imread(f)).astype(np.float32) / 255.0
+        im = imread(f).astype(np.float32) / 255.0
         if factor and factor > 1:
             im = _area_downscale(im, int(factor))
         imgs.append(im.astype(np.float32))

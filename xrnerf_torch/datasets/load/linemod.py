@@ -2,8 +2,8 @@
 — a copy of ``xrnerf_tpu/datasets/load/linemod.py``:
 ``transforms_{train,val,test}.json`` whose frames carry file paths and an
 ``intrinsic_matrix``, meta-level near/far (floored / ceiled), the spherical
-render path and an optional 2x area half-res. ``imageio`` is imported only
-when images are read.
+render path and an optional 2x area half-res. Images are read by
+``utils/png.py:imread``: PNGs without ``imageio``, JPEGs through it.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Tuple
 
 import numpy as np
 
+from ...utils.png import imread
 from ..rays import spherical_render_poses
 
 
@@ -30,8 +31,6 @@ def load_linemod_data(
 ) -> Tuple:
     """-> (imgs [N,H,W,C], poses [N,4,4], render_poses, [H,W,focal], K,
     i_split, near, far)."""
-    import imageio.v2 as imageio
-
     splits = ["train", "val", "test"]
     metas = {
         s: json.load(open(os.path.join(datadir, f"transforms_{s}.json")))
@@ -47,7 +46,7 @@ def load_linemod_data(
             fname = frame["file_path"]
             if not os.path.isabs(fname) and not os.path.exists(fname):
                 fname = os.path.join(datadir, fname)
-            imgs.append(np.asarray(imageio.imread(fname)))
+            imgs.append(imread(fname))
             poses.append(np.asarray(frame["transform_matrix"], np.float32))
         all_imgs.append((np.asarray(imgs) / 255.0).astype(np.float32))
         all_poses.append(np.stack(poses))

@@ -5,7 +5,8 @@ spherification, the spiral render path and the ``llffhold`` test split.
 Images are read from an ``images_<factor>`` directory when there is one,
 else from ``images/`` and area-downscaled in memory
 (``load/resize.py:area_resize``, OpenCV's ``INTER_AREA`` rounding for
-``uint8``). ``imageio`` is imported only when an image is read.
+``uint8``). Images are read by ``utils/png.py:imread``: PNGs without
+``imageio``, JPEGs through it.
 """
 
 from __future__ import annotations
@@ -15,13 +16,8 @@ from typing import Tuple
 
 import numpy as np
 
+from ...utils.png import imread
 from .resize import area_resize
-
-
-def _imread(path: str) -> np.ndarray:
-    import imageio.v2 as imageio
-
-    return np.asarray(imageio.imread(path))
 
 
 def _load_images(basedir: str, factor: int) -> np.ndarray:
@@ -38,7 +34,7 @@ def _load_images(basedir: str, factor: int) -> np.ndarray:
     )
     imgs = []
     for f in files:
-        im = _imread(f)[..., :3]
+        im = imread(f)[..., :3]
         if resize:
             im = area_resize(im, im.shape[0] // factor, im.shape[1] // factor)
         imgs.append(im / 255.0)

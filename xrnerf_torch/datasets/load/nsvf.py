@@ -4,7 +4,8 @@
 ``pose/<name>.txt`` camera-to-world matrices with the NSVF y/z flip,
 ``intrinsics.txt`` (a full matrix or an "f cx cy 0" line), the ``bbox.txt``
 global domain, near/far from ``near_and_far.txt`` or from the cameras'
-distances to the box. ``imageio`` is imported only when images are read.
+distances to the box. Images are read by ``utils/png.py:imread``: PNGs
+without ``imageio``, JPEGs through it.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ...utils.png import imread
 
 def load_matrix(path: str) -> np.ndarray:
     return np.array(
@@ -70,8 +72,6 @@ def load_nsvf_data(
     rgb_dir = os.path.join(datadir, "rgb")
     pose_dir = os.path.join(datadir, "pose")
 
-    import imageio.v2 as imageio
-
     imgs, poses, all_cam_pos = [], [], []
     i_split = [[], [], []]
     counters = [0, 0, 0]
@@ -91,7 +91,7 @@ def load_nsvf_data(
         i_split[split].append(index)
         index += 1
         imgs.append(
-            (np.asarray(imageio.imread(os.path.join(rgb_dir, fname))) / 255.0).astype(
+            (imread(os.path.join(rgb_dir, fname)) / 255.0).astype(
                 np.float32
             )
         )

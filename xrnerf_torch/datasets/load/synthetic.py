@@ -7,8 +7,8 @@ its normal, written as a nerf_synthetic layout (``transforms_{split}.json``
 cloud seen by a ring of ``x_cam = R x + T`` cameras); and an in-memory
 GeneBody-like capture (an icosphere "person" seen by a ring of OpenCV
 cameras, with masks and SMPL depth). The same seed gives the same arrays
-and files as the JAX package. ``imageio`` is imported only to write the
-pngs.
+and files as the JAX package. The pngs are written by
+``utils/png.py:imwrite_png`` (no ``imageio``).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import os
 
 import numpy as np
 
+from ...utils.png import imwrite_png
 from ..rays import get_rays_np, intrinsics_from_hwf, pose_spherical
 
 
@@ -120,8 +121,6 @@ def make_synthetic_blender(
     seed: int = 0,
 ) -> str:
     """Write a tiny nerf_synthetic-layout scene; returns ``out_dir``."""
-    import imageio.v2 as imageio
-
     rng = np.random.RandomState(seed)
     focal = 0.5 * W / np.tan(0.5 * camera_angle_x)
     counts = {"train": n_train, "val": n_val, "test": n_test}
@@ -134,7 +133,7 @@ def make_synthetic_blender(
             c2w = pose_spherical(theta, phi, radius)
             img = _trace_sphere(H, W, focal, c2w)
             rel = f"./{split}/r_{i}"
-            imageio.imwrite(os.path.join(out_dir, f"{split}/r_{i}.png"), img)
+            imwrite_png(os.path.join(out_dir, f"{split}/r_{i}.png"), img)
             frames.append({"file_path": rel, "transform_matrix": c2w.tolist()})
         meta = {"camera_angle_x": camera_angle_x, "frames": frames}
         with open(os.path.join(out_dir, f"transforms_{split}.json"), "w") as f:

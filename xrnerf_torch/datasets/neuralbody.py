@@ -14,8 +14,8 @@ Layout (standard ZJU-MoCap):
   new_vertices/{i}.npy  posed SMPL vertices [6890, 3]
 
 An ``arrays=`` constructor takes the same data in memory
-(``load/synthetic.py:make_synthetic_zju``). ``imageio`` is imported only
-when the ZJU layout is read.
+(``load/synthetic.py:make_synthetic_zju``). Images and masks are read by
+``utils/png.py:imread``: PNGs without ``imageio``, JPEGs through it.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..registry import DATASETS
+from ..utils.png import imread
 
 
 def rays_from_KRT(H, W, K, R, T, pix=None):
@@ -98,8 +99,6 @@ class NeuralBodyDataset:
 
     # ------------------------------------------------------------------
     def _load_zju(self, datadir, f0, f1, skip, mask_dir, vertices_dir):
-        import imageio.v2 as imageio
-
         annots = np.load(os.path.join(datadir, "annots.npy"), allow_pickle=True).item()
         cams = annots["cams"]
         Ks = np.asarray(cams["K"], np.float32)
@@ -112,11 +111,11 @@ class NeuralBodyDataset:
             paths = frame["ims"]
             frame_imgs, frame_masks = [], []
             for p in paths:
-                img = np.asarray(imageio.imread(os.path.join(datadir, p))) / 255.0
+                img = imread(os.path.join(datadir, p)) / 255.0
                 mpath = os.path.join(datadir, mask_dir, p.replace(".jpg", ".png"))
                 if not os.path.exists(mpath):
                     mpath = os.path.join(datadir, "mask", p.replace(".jpg", ".png"))
-                m = (np.asarray(imageio.imread(mpath)) > 0).astype(np.float32)
+                m = (imread(mpath) > 0).astype(np.float32)
                 if m.ndim == 3:
                     m = m[..., 0]
                 frame_imgs.append((img[..., :3] * m[..., None]).astype(np.float32))

@@ -1,11 +1,13 @@
 """Native (C++) host-side pieces of the port, bound with ctypes — a copy of
 ``xrnerf_tpu/native`` that builds into ``xrnerf_torch/_build/`` (listed in
-``.gitignore``), never into the JAX package.
+``.gitignore``), never into the JAX package, plus the PNG reader's
+scanline unfilter (``png_unfilter.cpp``, for ``utils/png.py``).
 
-``load_mesh_grid()`` compiles ``mesh_grid.cpp`` with ``g++`` on first use
-(the library is named by a hash of the source and flags, and reused while
-they are unchanged) and raises if the compiler is missing or the build
-fails: there is no silent fallback. Nothing is built at import time.
+``load_mesh_grid()`` and ``load_png_unfilter()`` compile their source with
+``g++`` on first use (a library is named by a hash of its source and
+flags, and reused while they are unchanged) and raise if the compiler is
+missing or the build fails: there is no silent fallback. Nothing is built
+at import time.
 """
 
 from __future__ import annotations
@@ -19,34 +21,65 @@ from pathlib import Path
 
 from ..ops.build import BUILD_DIR
 
-SRC = Path(__file__).resolve().parent / "mesh_grid.cpp"
+_DIR = Path(__file__).resolve().parent
+SRC = _DIR / "mesh_grid.cpp"
+PNG_SRC = _DIR / "png_unfilter.cpp"
 GXX_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _lib = None
+_png_lib = None
+
+
+def _hashed_path(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def lib_path() -> Path:
-    h = hashlib.sha256(SRC.read_bytes())
-    h.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libmesh_grid-{h.hexdigest()[:16]}.so"
+    return _hashed_path(SRC)
 
 
-def build() -> Path:
-    """Compile the library if it is not built yet; raises on failure."""
-    out = lib_path()
+def png_lib_path() -> Path:
+    return _hashed_path(PNG_SRC)
+
+
+def _compile(src: Path, out: Path) -> Path:
+    """Compile ``src`` into ``out`` if it is not built yet; raises on failure."""
     if out.exists():
         return out
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("mesh_grid: no g++ on PATH to build the native mesh searcher")
+        raise RuntimeError(f"{src.stem}: no g++ on PATH to build {src.name}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(SRC)], stdout=subprocess.PIPE,
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for mesh_grid.cpp (rc {proc.returncode}):\n{proc.stdout}")
+        raise RuntimeError(f"g++ failed for {src.name} (rc {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)
     return out
+
+
+def build() -> Path:
+    """Compile the mesh-grid library if it is not built yet; raises on failure."""
+    return _compile(SRC, lib_path())
+
+
+def load_png_unfilter() -> ctypes.CDLL:
+    """ctypes handle to the PNG unfilter library (built on first use)."""
+    global _png_lib
+    if _png_lib is None:
+        try:
+            lib = ctypes.CDLL(str(_compile(PNG_SRC, png_lib_path())))
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            raise RuntimeError(f"reading a PNG builds {PNG_SRC.name} on first use: it needs g++ on PATH and a "
+                               f"writable {BUILD_DIR}, and the build failed: {e}") from e
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.png_unfilter.restype = ctypes.c_int64
+        lib.png_unfilter.argtypes = [u8p, u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+        _png_lib = lib
+    return _png_lib
 
 
 def load_mesh_grid() -> ctypes.CDLL:

@@ -3,6 +3,7 @@
     python -m xrnerf_torch.run_nerf --config configs/nerf/nerf_blender.py \
         --dataname lego [--max_iters N] [--device cuda]
     python -m xrnerf_torch.run_nerf --config ... --test_only --load_from weights.pt
+    python -m xrnerf_torch.run_nerf --config ... --test_only --load_from ckpt_N.msgpack
 
 Flags are those of the top-level ``run_nerf.py`` plus ``--device``
 (default ``cuda``; raises without a card unless ``--device cpu``). On the
@@ -32,7 +33,8 @@ def parse_args(argv=None):
     p.add_argument("--dataname", default="lego", help="scene name substituted for #DATANAME#")
     p.add_argument("--test_only", action="store_true", help="run test instead of train")
     p.add_argument("--render_only", action="store_true", help="render the spiral path only")
-    p.add_argument("--load_from", default=None, help="weights-only .pt state dict to load")
+    p.add_argument("--load_from", default=None,
+                   help="weights to load: a .pt state dict or checkpoint, or a JAX-package ckpt_N.msgpack (its parameters)")
     p.add_argument("--resume_from", default=None, help="full checkpoint to resume")
     p.add_argument("--work_dir", default=None, help="override cfg.work_dir")
     p.add_argument("--max_iters", type=int, default=None, help="override cfg.max_iters")

@@ -1,16 +1,20 @@
 """Image/quality metrics in torch.
 
-Port of ``xrnerf_tpu/utils/metrics.py:18-101``: ``img2mse``/``mse2psnr``/
-``psnr``/``to8b``/``huber`` and the Gaussian-windowed SSIM. Functions take tensors
-or numpy arrays (numpy is read as float32 on the CPU) and return tensors.
-LPIPS is not ported yet.
+Port of ``xrnerf_tpu/utils/metrics.py``: ``img2mse``/``mse2psnr``/
+``psnr``/``to8b``/``huber``, the Gaussian-windowed SSIM and ``LPIPS``. Functions
+take tensors or numpy arrays (numpy is read as float32 on the CPU) and return
+tensors.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .device import resolve_device
 
 
 def _t(x) -> torch.Tensor:
@@ -87,3 +91,62 @@ def ssim(
     numer = (2 * mu01 + c1) * (2 * sigma01 + c2)
     denom = (mu00 + mu11 + c1) * (sigma00 + sigma11 + c2)
     return (numer / denom).mean()
+
+
+class LPIPS:
+    """Learned perceptual metric (GNR's evaluation) — a copy of the JAX
+    package's, which is torch already, on ``device`` (the card by default;
+    raises without one unless ``device="cpu"``).
+
+    It reads only a local ``weights_path``: a torch state dict holding
+    ``vgg16.features``' conv weights and biases (in their index order) and
+    optionally LPIPS's per-layer ``lin{i}.weight`` calibrations. Nothing is
+    fetched; a file without conv weights raises.
+    """
+
+    # VGG16 features: 2/2/3/3/3 convs per LPIPS slice
+    _SLICE_ENDS = (2, 4, 7, 10, 13)
+
+    def __init__(self, weights_path: str, device="cuda"):
+        self.device = resolve_device(device)
+        sd = torch.load(weights_path, map_location=self.device)
+        self.convs = {k: v.float() for k, v in sd.items() if k.endswith("weight") and v.ndim == 4}
+        self.biases = {k: v.float() for k, v in sd.items() if k.endswith("bias")}
+        self.lins = {k: v.float() for k, v in sd.items() if "lin" in k}
+        if not self.convs:
+            raise ValueError(f"no conv weights found in {weights_path}")
+        self._conv_items = sorted(self.convs.items(), key=lambda kv: _key_num(kv[0]))
+        self._mean = torch.tensor([0.485, 0.456, 0.406], device=self.device).view(1, 3, 1, 1)
+        self._std = torch.tensor([0.229, 0.224, 0.225], device=self.device).view(1, 3, 1, 1)
+
+    def _feats(self, img):
+        x = img if isinstance(img, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(img))
+        x = x.to(self.device).float()
+        x = (x.permute(2, 0, 1)[None] - self._mean) / self._std
+        outs, ci = [], 0
+        with torch.no_grad():
+            for end in self._SLICE_ENDS:
+                while ci < min(end, len(self._conv_items)):
+                    k, w = self._conv_items[ci]
+                    x = torch.relu(F.conv2d(x, w, self.biases.get(k.replace("weight", "bias")), padding=1))
+                    ci += 1
+                outs.append(x / (x.norm(dim=1, keepdim=True) + 1e-10))
+                x = F.max_pool2d(x, 2)
+        return outs
+
+    def __call__(self, pred, target) -> float:
+        """pred/target [H, W, 3] in [0, 1] -> scalar LPIPS distance."""
+        d = 0.0
+        for i, (a, b) in enumerate(zip(self._feats(pred), self._feats(target))):
+            diff = (a - b) ** 2
+            lin = self.lins.get(f"lin{i}.weight")
+            if lin is not None:
+                d += float((diff * lin.view(1, -1, 1, 1).abs()).sum(dim=1).mean())
+            else:
+                d += float(diff.mean())
+        return d
+
+
+def _key_num(k: str) -> int:
+    m = re.search(r"(\d+)", k)
+    return int(m.group(1)) if m else 0
