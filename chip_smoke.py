@@ -273,7 +273,30 @@ Phases, each printed as one JSON line:
              from a local file) on the card against the CPU on the vanilla
              test frame, relative difference <= 1e-4. Rows 1-7 must each
              launch on the phase's path; its launches join the kernels line.
-33. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+33. captures - the captured datasets' photos: the JPEGs under
+             ``tests/data/jpeg/`` (written by ``tools/make_jpeg_fixtures.py``
+             with Pillow and OpenCV where they are installed; the card's
+             machine has no JPEG encoder). The JPEG decoder (``native/jpeg_decode.cpp``) is
+             built from the checkout; every file decodes to the SHA-256 of
+             ``imageio.v2.imread``'s array in ``manifest.json`` and the
+             progressive one is refused, naming the file (ms per decode, host
+             clock, median of 5, per sampling mode and for a 1024x1024 4:2:0
+             quality-95 photo). In a temporary working directory the phase
+             writes the masks, annotations and SMPL files around the photos
+             (``imwrite_png``, numpy): ``run_nerf.main`` trains NeuralBody
+             (``configs/neuralbody/nb_zjumocap.py``, full width) 10 steps on
+             the ZJU-MoCap layout of ``make_synthetic_zju(n_frames=2,
+             n_cams=4, H=512, W=512, n_verts=6890)`` and renders one 512x512
+             view, its dataset's images and masks equal to the JAX loader's
+             hashes; ``GeneBodyDataset`` reads a 1024x1024, 6-camera GeneBody
+             layout (each crop downscaled to 512 by the port's Pillow bicubic)
+             to the JAX loader's hashes of imgs, masks and Ks, and GNR at full
+             width takes 2 steps; vanilla NeRF (``configs/nerf/nerf_llff.py``,
+             fused) trains 10 steps on 4 full-size 1008x756 LLFF photos, which
+             the loader downscales by 8 (``area_resize``) to the manifest's
+             hash. 0 launches of the seven kernels in the NeuralBody and GNR
+             stages; LLFF's launches of rows 1-2 join the kernels line.
+34. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
              A line before it gives the script's total seconds.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
@@ -3622,6 +3645,294 @@ def files_phase(work_dir):
     return line
 
 
+# 33. captures: the captured datasets' photos (JPEGs committed under tests/data/jpeg/) on the card
+CAPTURES = os.path.join(ROOT, "tests", "data", "jpeg")  # written by tools/make_jpeg_fixtures.py (needs Pillow)
+CAPTURE_ZJU = dict(n_frames=2, n_cams=4, H=512, W=512, n_verts=6890, seed=SEED)
+CAPTURE_GENEBODY = dict(n_frames=1, n_cams=6, H=1024, W=1024, radius=0.6, seed=SEED)  # crops ~700 px, downscaled to 512
+CAPTURE_LLFF = dict(n_images=4, H=756, W=1008, seed=SEED)  # a quarter of LLFF's 4032x3024 photos
+CAPTURE_SUBJECT = "synthetic"  # the GeneBody subject and the LLFF scene's name
+CAPTURE_STEPS = {"neuralbody": 10, "gnr": 2, "llff": 10}
+CAPTURE_DECODE_REPS = 5
+CAPTURE_BIG = "genebody/image/00/0000.jpg"  # 1024x1024, 4:2:0, quality 95
+
+
+def to_u8(x):
+    return np.round(255 * np.clip(x, 0, 1)).astype(np.uint8)
+
+
+def copy_photos(photos, root, rels):
+    for rel in rels:
+        os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+        shutil.copyfile(os.path.join(photos, rel), os.path.join(root, rel))
+
+
+def zju_capture(root, photos):
+    """A ZJU-MoCap directory of ``make_synthetic_zju(**CAPTURE_ZJU)``: the
+    photos ``Camera_B<c>/<frame>.jpg`` copied from ``photos``, the masks
+    ``mask_cihp/...png`` (``imwrite_png``), ``new_vertices/<f>.npy`` and
+    ``annots.npy`` (T in mm), as ``tests/test_torch_neuralbody.py`` writes
+    them. Returns the arrays."""
+    from xrnerf_torch.datasets.load.synthetic import make_synthetic_zju
+    from xrnerf_torch.utils.png import imwrite_png
+
+    arrays = make_synthetic_zju(**CAPTURE_ZJU)
+    n_frames, n_cams = arrays["imgs"].shape[:2]
+    ims = []
+    for f in range(n_frames):
+        rels = [f"Camera_B{c + 1}/{f:06d}.jpg" for c in range(n_cams)]
+        copy_photos(photos, root, rels)
+        for c, rel in enumerate(rels):
+            mask = os.path.join(root, "mask_cihp", rel[:-4] + ".png")
+            os.makedirs(os.path.dirname(mask), exist_ok=True)
+            imwrite_png(mask, to_u8(arrays["masks"][f, c]))
+        ims.append({"ims": rels})
+        os.makedirs(os.path.join(root, "new_vertices"), exist_ok=True)
+        np.save(os.path.join(root, "new_vertices", f"{f}.npy"), arrays["verts"][f])
+    cams = {"K": arrays["K"], "R": arrays["R"], "T": arrays["T"][..., None] * 1000.0,
+            "D": np.zeros((n_cams, 5, 1), np.float32)}
+    np.save(os.path.join(root, "annots.npy"), np.array({"cams": cams, "ims": ims}, dtype=object))
+    return arrays
+
+
+def genebody_capture(root, photos):
+    """A GeneBody directory ``root/<CAPTURE_SUBJECT>`` of
+    ``make_synthetic_genebody(**CAPTURE_GENEBODY)``: the photos
+    ``image/<cam>/<frame>.jpg`` copied from ``photos``, ``mask/`` (uint8) and
+    ``smpl_depth/`` (uint16 mm) PNGs, ``param/`` and ``smpl/`` per frame and
+    ``annots.npy``, as ``tests/test_torch_gnr.py`` writes them. Returns the
+    arrays."""
+    from xrnerf_torch.datasets.load.synthetic import make_synthetic_genebody
+    from xrnerf_torch.utils.png import imwrite_png
+
+    arrays = make_synthetic_genebody(**CAPTURE_GENEBODY)
+    base = os.path.join(root, CAPTURE_SUBJECT)
+    n_frames, n_cams = arrays["imgs"].shape[:2]
+    os.makedirs(base, exist_ok=True)
+    cams = {"%02d" % c: {"K": arrays["K"][c], "c2w": np.linalg.inv(arrays["w2c"][c])} for c in range(n_cams)}
+    np.save(os.path.join(base, "annots.npy"), {"cams": cams}, allow_pickle=True)
+    for f in range(n_frames):
+        stem = "%04d" % f
+        copy_photos(photos, base, [f"image/{c:02d}/{stem}.jpg" for c in range(n_cams)])
+        for c in range(n_cams):
+            for sub, img in (("mask", (255 * arrays["masks"][f, c]).astype(np.uint8)),
+                             ("smpl_depth", np.round(1000 * arrays["smpl_depth"][f, c]).astype(np.uint16))):
+                os.makedirs(os.path.join(base, sub, "%02d" % c), exist_ok=True)
+                imwrite_png(os.path.join(base, sub, "%02d" % c, stem + ".png"), img)
+        for sub in ("param", "smpl"):
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        np.save(os.path.join(base, "param", stem + ".npy"),
+                {"smplx": {"global_orient": np.array([[0.0, 0.0, 0.1 * f]], np.float32)}}, allow_pickle=True)
+        with open(os.path.join(base, "smpl", stem + ".obj"), "w") as fh:
+            fh.writelines(f"v {x} {y} {z}\n" for x, y, z in arrays["smpl_verts"][f])
+            fh.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in arrays["smpl_faces"])
+    return arrays
+
+
+def llff_capture(root, photos):
+    """An LLFF scene directory: the full-size photos ``images/img_<i>.jpg``
+    copied from ``photos`` (no ``images_8``) and ``poses_bounds.npy`` of
+    ``CAPTURE_LLFF["n_images"]`` cameras near z = 0 looking down -z
+    (LLFF's [down, right, back] columns and [H, W, focal])."""
+    n, H, W = CAPTURE_LLFF["n_images"], CAPTURE_LLFF["H"], CAPTURE_LLFF["W"]
+    copy_photos(photos, root, [f"images/img_{i:03d}.jpg" for i in range(n)])
+    rng = np.random.RandomState(CAPTURE_LLFF["seed"])
+    rows = []
+    for _ in range(n):
+        a = rng.uniform(-0.05, 0.05, 3)
+        cx, sx, cy, sy, cz, sz = np.cos(a[0]), np.sin(a[0]), np.cos(a[1]), np.sin(a[1]), np.cos(a[2]), np.sin(a[2])
+        rot = (np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]]) @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+               @ np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]]))
+        t = np.array([rng.uniform(-0.3, 0.3), rng.uniform(-0.2, 0.2), rng.uniform(-0.05, 0.05)])
+        pose = np.stack([-rot[:, 1], rot[:, 0], rot[:, 2], t, [H, W, 0.8 * W]], 1)
+        rows.append(np.concatenate([pose.reshape(-1), [rng.uniform(1.5, 2.5), rng.uniform(6.0, 9.0)]]))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows).astype(np.float64))
+
+
+def sha256(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+CAPTURE_GENEBODY_VIEWS = (0, 1, 2, 3)  # four of the six cameras as sources, the other two queried
+CAPTURE_HUMAN_STAGES = ("neuralbody", "gnr")  # 0 launches of the seven kernels, or the phase fails
+
+
+def check_digest(what, got, want):
+    """``got`` has the manifest entry's shape, dtype and SHA-256."""
+    got = np.ascontiguousarray(got)
+    if list(got.shape) != want["shape"] or str(got.dtype) != want["dtype"] or sha256(got) != want["sha256"]:
+        raise AssertionError(f"captures: {what} is {got.dtype} {list(got.shape)} {sha256(got)[:16]}..., the "
+                             f"manifest's {want['dtype']} {want['shape']} {want['sha256'][:16]}...")
+
+
+def decode_ms(path, reps=CAPTURE_DECODE_REPS):
+    from xrnerf_torch.utils.jpeg import imread_jpeg
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        imread_jpeg(path)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def captures_phase(work_dir):
+    """33. The captured datasets' photos, the JPEGs committed under
+    ``tests/data/jpeg/``, through the port's readers and loaders on the card:
+    every file decoded against the manifest (the progressive one refused),
+    ms per decode; NeuralBody trained and rendered through the CLI from a
+    ZJU-MoCap layout; ``GeneBodyDataset`` from a GeneBody layout (crops
+    resized without Pillow) and two GNR steps; vanilla NeRF on LLFF from
+    full-size photos through the CLI. The main path is the three stages
+    (``CAPTURE_HUMAN_STAGES`` and ``llff``); LLFF's launches join the kernels
+    line."""
+    from xrnerf_torch import build_dataset, build_network, load_config, run_nerf
+    from xrnerf_torch.core.trainer import Trainer
+    from xrnerf_torch.datasets.load.llff import load_llff_data
+    from xrnerf_torch.native import load_jpeg_decoder
+    from xrnerf_torch.utils.jpeg import imread_jpeg
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(CAPTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    counters = kernel_counters()
+    line = {"phase": "captures", "fixtures": os.path.relpath(CAPTURES, ROOT), "files": len(manifest["files"])}
+    launches, stage_s, t_stage = {}, {}, [t_phase]
+
+    def stage(name):  # launches of each counter and host seconds since the last stage
+        launches[name] = {k: f.launches for k, f in counters.items()}
+        for f in counters.values():
+            f.launches = 0
+        stage_s[name] = time.perf_counter() - t_stage[0]
+        t_stage[0] = time.perf_counter()
+
+    # 1. the decoder: built from the checkout, every file against imageio's hash, the refusals, ms per decode
+    t0 = time.perf_counter()
+    load_jpeg_decoder()
+    line["build_s"] = time.perf_counter() - t0
+    decoded, refused = {}, {}
+    for rel, want in sorted(manifest["files"].items()):
+        path = os.path.join(CAPTURES, rel)
+        if rel in manifest["refused"]:
+            try:
+                imread_jpeg(path)
+            except ValueError as e:
+                if manifest["refused"][rel] not in str(e) or path not in str(e):
+                    raise AssertionError(f"captures: {rel} refused without naming the file and the reason: {e}")
+                refused[rel] = str(e)[len(path) + 2:]
+                continue
+            raise AssertionError(f"captures: {rel} decoded; the port refuses {manifest['refused'][rel]} JPEGs")
+        check_digest(rel, imread_jpeg(path), want)
+        if rel.startswith("conformance/") or rel == CAPTURE_BIG:
+            decoded[rel] = {"ms": decode_ms(path), "shape": want["shape"], "bytes": os.path.getsize(path),
+                            "settings": want["settings"]}
+    line.update(decoded_ms=decoded, refused=refused, bit_equal=len(manifest["files"]) - len(refused))
+    stage("decode")
+
+    cwd = os.getcwd()
+    os.chdir(work_dir)
+    try:
+        for f in counters.values():
+            f.launches = 0  # the main path starts here
+        # 2. NeuralBody from its ZJU-MoCap capture through the CLI
+        zju = os.path.join("data", "zju_mocap", "CoreView_313")
+        zju_capture(zju, os.path.join(CAPTURES, "zju"))
+        photos = sorted(os.path.join(d, n) for d, _, ns in os.walk(zju) for n in ns if n.endswith(".jpg"))
+        nb_cfg = config_copy("configs/neuralbody/nb_zjumocap.py", "nb_captures.py", [
+            "eval_interval = 0", "ckpt_interval = 0", "log_interval = 5", "hooks = []"])
+        t0 = time.perf_counter()
+        ds = build_dataset(load_config(nb_cfg, dataname="313")["data"])
+        load_s = time.perf_counter() - t0
+        want = manifest["captures"]["zju"]
+        check_digest("NeuralBodyDataset imgs", ds.imgs, want["imgs"])
+        check_digest("NeuralBodyDataset masks", ds.masks, want["masks"])
+        del ds
+        t0 = time.perf_counter()
+        tr = run_nerf.main(["--config", nb_cfg, "--dataname", "313", "--max_iters", str(CAPTURE_STEPS["neuralbody"]),
+                            "--work_dir", "nb_train", "--device", "cuda"])
+        cli_s = time.perf_counter() - t0
+        if tr.step != CAPTURE_STEPS["neuralbody"] or not all(math.isfinite(v) for v in tr.last_logs.values()):
+            raise AssertionError(f"captures: NeuralBody reached step {tr.step}, logs {tr.last_logs}")
+        check_digest("the CLI's NeuralBodyDataset imgs", tr.dataset.imgs, want["imgs"])
+        rays, gt = tr.dataset.eval_item(0)
+        H, W = gt.shape[:2]
+        t0 = time.perf_counter()
+        out = tr.render_image(rays, H, W)
+        frame_s = time.perf_counter() - t0
+        if out["rgb"].shape != (H, W, 3) or (H, W) != (CAPTURE_ZJU["H"], CAPTURE_ZJU["W"]) or not all(
+                np.isfinite(out[k]).all() for k in ("rgb", "acc")):
+            raise AssertionError(f"captures: NeuralBody frame {out['rgb'].shape} or non-finite")
+        line["neuralbody"] = {"config": "configs/neuralbody/nb_zjumocap.py", "photos": len(photos),
+                              "load_s": load_s, "jpeg_ms": float(np.median([decode_ms(p, 1) for p in photos])),
+                              "steps": tr.step, "cli_s": cli_s, "last_window": tr.last_logs,
+                              "frame": {"H": H, "W": W, "s": frame_s, "acc_mean": float(out["acc"].mean())}}
+        del tr, out
+        stage("neuralbody")
+
+        # 3. GNR: GeneBodyDataset from its capture (bicubic and nearest crops without Pillow), two steps
+        gb_root = os.path.join("data", "genebody")
+        genebody_capture(gb_root, os.path.join(CAPTURES, "genebody"))
+        cfg = load_config(os.path.join(ROOT, "configs", "gnr", "gnr_genebody.py"), dataname=CAPTURE_SUBJECT)
+        t0 = time.perf_counter()
+        ds = build_dataset(dict(cfg["data"], datadir=gb_root, input_views=CAPTURE_GENEBODY_VIEWS))
+        load_s = time.perf_counter() - t0
+        want = manifest["captures"]["genebody"]
+        for k in ("imgs", "masks", "Ks"):
+            check_digest(f"GeneBodyDataset {k}", getattr(ds, k), want[k])
+        tr = Trainer(build_network(cfg["model"], device="cuda"), ds, optimizer=cfg["optimizer"], work_dir="gnr_train",
+                     max_iters=CAPTURE_STEPS["gnr"], log_interval=1, ckpt_interval=0, eval_chunk=int(cfg["eval_chunk"]),
+                     seed=SEED, device="cuda")
+        t0 = time.perf_counter()
+        reached = tr.run()
+        torch.cuda.synchronize()
+        if reached != CAPTURE_STEPS["gnr"] or not all(math.isfinite(v) for v in tr.last_logs.values()):
+            raise AssertionError(f"captures: GNR reached step {reached}, logs {tr.last_logs}")
+        line["gnr"] = {"config": "configs/gnr/gnr_genebody.py", "input_views": list(CAPTURE_GENEBODY_VIEWS),
+                       "photos": int(np.prod(ds.imgs.shape[:2])), "load_s": load_s,
+                       "size": [CAPTURE_GENEBODY["H"], CAPTURE_GENEBODY["W"]], "load_size": ds.load_size,
+                       "steps": reached, "train_s": time.perf_counter() - t0, "last_logs": tr.last_logs}
+        del tr, ds
+        torch.cuda.empty_cache()
+        stage("gnr")
+
+        # 4. vanilla NeRF (fused) on LLFF from full-size photos: the loader's factor 8 through area_resize
+        llff = os.path.join("data", "nerf_llff_data", CAPTURE_SUBJECT)
+        llff_capture(llff, os.path.join(CAPTURES, "llff"))
+        t0 = time.perf_counter()
+        imgs = load_llff_data(llff)[0]
+        load_s = time.perf_counter() - t0
+        check_digest("load_llff_data images", imgs, manifest["captures"]["llff"]["images"])
+        llff_cfg = config_copy("configs/nerf/nerf_llff.py", "llff_captures.py", [
+            "model.update(fused=True)", "eval_interval = 0", "ckpt_interval = 0", "log_interval = 5", "hooks = []"])
+        t0 = time.perf_counter()
+        tr = run_nerf.main(["--config", llff_cfg, "--dataname", CAPTURE_SUBJECT, "--max_iters",
+                            str(CAPTURE_STEPS["llff"]), "--work_dir", "llff_train", "--device", "cuda"])
+        if tr.step != CAPTURE_STEPS["llff"] or not all(math.isfinite(v) for v in tr.last_logs.values()):
+            raise AssertionError(f"captures: LLFF reached step {tr.step}, logs {tr.last_logs}")
+        if (tr.dataset.H, tr.dataset.W) != imgs.shape[1:3]:
+            raise AssertionError(f"captures: LLFF trained at {tr.dataset.H}x{tr.dataset.W}, loaded {imgs.shape}")
+        line["llff"] = {"config": "configs/nerf/nerf_llff.py", "fused": True, "photos": len(imgs),
+                        "photo_size": [CAPTURE_LLFF["H"], CAPTURE_LLFF["W"]], "trained_size": list(imgs.shape[1:3]),
+                        "load_s": load_s, "steps": tr.step, "cli_s": time.perf_counter() - t0,
+                        "last_window": tr.last_logs}
+        del tr
+        stage("llff")
+    finally:
+        os.chdir(cwd)
+
+    human = {s: {k: n for k, n in launches[s].items() if n} for s in CAPTURE_HUMAN_STAGES}
+    if any(human.values()):
+        raise AssertionError(f"captures: the human stages launched hand-written kernels: {human}")
+    total = launches["llff"]
+    if not (total["fused_nerf_mlp_fwd"] and total["fused_nerf_mlp_bwd"]):
+        raise AssertionError(f"captures: LLFF's training launched rows 1-2 {total}")
+    line.update(launches_by_stage=launches, seconds_by_stage=stage_s, launches=total,
+                seconds=time.perf_counter() - t_phase)
+    return line
+
+
+
 def nerf_counters():
     """The launch counters of the two vanilla-NeRF kernels."""
     from xrnerf_torch.ops import fused_nerf_mlp as fm
@@ -3856,28 +4167,37 @@ def main() -> int:
         emit(files)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+
+    # 33. captures: the captured datasets' JPEG photos through the loaders and the CLI
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_captures_")
+    try:
+        captures = captures_phase(work_dir)
+        emit(captures)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
     check_card_flags("end")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
-    # 33. kernels
+    # 34. kernels
     k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
     keys = ("rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": "fused_nerf_mlp_fwd", "route": "cuda", "source": "xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu",
          "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:150",
          "launches": main_path_launches + train_launches["fused_nerf_mlp_fwd"] + kilo_launches
-         + multi["launches"]["fused_nerf_mlp_fwd"] + files["launches"]["fused_nerf_mlp_fwd"],
+         + multi["launches"]["fused_nerf_mlp_fwd"] + files["launches"]["fused_nerf_mlp_fwd"]
+         + captures["launches"]["fused_nerf_mlp_fwd"],
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()), **{k: k1[k] for k in keys}},
         {"name": "fused_nerf_mlp_bwd", "route": "cuda", "source": "xrnerf_torch/csrc/fused_nerf_mlp_bwd.cu",
          "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:159",
          "launches": train_launches["fused_nerf_mlp_bwd"] + multi["launches"]["fused_nerf_mlp_bwd"]
-         + files["launches"]["fused_nerf_mlp_bwd"],
+         + files["launches"]["fused_nerf_mlp_bwd"] + captures["launches"]["fused_nerf_mlp_bwd"],
          "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
          "min_cos": min(r["min_cos"] for r in bwd_rows.values()), **{k: b1[k] for k in keys}},
         *({"name": name, "route": "cuda", "source": f"xrnerf_torch/csrc/fused_mlp_{name[-3:]}.cu",
            "replaces": f"xrnerf_tpu/ops/pallas/fused_mlp.py:{line}",
            "launches": ngp_launches.get(name, 0) + ngp_train_launches[name] + multi["launches"][name]
-           + files["launches"][name],
+           + files["launches"][name] + captures["launches"][name],
            "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
            **{k: rows[name][262_144][k] for k in keys}}
           for name, line, rows in (("fused_mlp2_fwd", 64, tiny_rows), ("fused_mlp2_bwd", 77, tiny_bwd_rows),
@@ -3885,7 +4205,7 @@ def main() -> int:
         {"name": "scatter_add_rows", "route": "cuda", "source": "xrnerf_torch/csrc/scatter_rows.cu",
          "replaces": "xrnerf_tpu/ops/pallas/scatter_rows.py:62",
          "launches": ngp_train_launches["scatter_add_rows"] + multi["launches"]["scatter_add_rows"]
-         + files["launches"]["scatter_add_rows"],
+         + files["launches"]["scatter_add_rows"] + captures["launches"]["scatter_add_rows"],
          "max_abs_err": max(r["max_abs_err"] for r in scatter_rows.values()),
          **{k: scatter_rows["vertex_step"][k] for k in keys}, "levels": scatter_rows["vertex_step"]["levels"],
          "other_shapes": {c: {k: r[k] for k in ("rows", "width", "num_rows", "ms", "plain_ms", "bound_ms", "library_ms")}

@@ -544,12 +544,21 @@ def test_imwrite_png_round_trips_through_imageio(shape, tmp_path):
 
 
 def test_imread_needs_imageio_only_for_other_formats(monkeypatch, tmp_path):
+    """PNG and JPEG files read without imageio; another format (a BMP)
+    raises naming the file."""
+    import imageio.v2 as imageio
+
     img = np.arange(12, dtype=np.uint8).reshape(3, 4)
     imwrite_png(str(tmp_path / "a.png"), img)
+    rgb = np.random.RandomState(5).randint(0, 256, (9, 11, 3)).astype(np.uint8)
+    imageio.imwrite(str(tmp_path / "b.jpg"), rgb, quality=90)
+    imageio.imwrite(str(tmp_path / "c.bmp"), rgb)
+    jpeg = np.asarray(imageio.imread(str(tmp_path / "b.jpg")))
     monkeypatch.setitem(sys.modules, "imageio", None)
     _bits_equal(imread(str(tmp_path / "a.png")), img, "png")
-    with pytest.raises(ModuleNotFoundError, match="b.jpg"):
-        imread(str(tmp_path / "b.jpg"))
+    _bits_equal(imread(str(tmp_path / "b.jpg")), jpeg, "jpeg")
+    with pytest.raises(ModuleNotFoundError, match="c.bmp"):
+        imread(str(tmp_path / "c.bmp"))
 
 
 def test_unfilter_build_failure_names_gxx_and_the_build_dir(monkeypatch, tmp_path):

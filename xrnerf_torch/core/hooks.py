@@ -2,7 +2,8 @@
 (``ValidateHook``, ``TestHook``, ``SaveSpiralHook``, ``OccupationHook``,
 ``ElapsedTimeHook``, ``ProfileHook``, ``SampleBudgetHook``). Images are written only when
 ``save_img`` is set: pngs by ``utils/png.py:imwrite_png`` (no ``imageio``), the
-spiral's mp4 or gif through ``imageio``, imported only then. Under a mesh every
+spiral's mp4 through ``imageio`` and its ffmpeg, imported only then, and
+where either is missing a gif from ``utils/gif.py``. Under a mesh every
 rank renders (the renderer shares the chunks out) and only global rank 0
 (``parallel.mesh.is_main``) writes images, JSON and traces or reads the kill switch.
 """
@@ -20,6 +21,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..parallel.mesh import is_main
 from ..registry import HOOKS
+from ..utils.gif import write_gif
 from ..utils.logger import get_logger
 from ..utils.metrics import psnr, ssim, to8b
 from ..utils.png import imwrite_png
@@ -107,8 +109,9 @@ class TestHook(Hook):
 
 @HOOKS.register
 class SaveSpiralHook(Hook):
-    """Render the orbit path; with ``save_img`` write it as an mp4 (gif
-    fallback). The uint8 frames are kept in ``self.frames``."""
+    """Render the orbit path; with ``save_img`` write it as an mp4 through
+    ``imageio`` and ffmpeg, or, where either is missing, as a gif through
+    ``utils/gif.py``. The uint8 frames are kept in ``self.frames``."""
 
     def __init__(self, n_frames: int = 0, fps: int = 20, save_img: bool = True):
         self.n_frames = n_frames
@@ -128,14 +131,14 @@ class SaveSpiralHook(Hook):
             self.frames.append(to8b(ret["rgb"]))
         if not (self.save_img and is_main()):
             return
-        import imageio.v2 as imageio
-
         out = os.path.join(tr.work_dir, f"spiral_{step}")
         os.makedirs(tr.work_dir, exist_ok=True)
         try:
+            import imageio.v2 as imageio
+
             imageio.mimwrite(out + ".mp4", self.frames, fps=self.fps, quality=8)
-        except (ValueError, RuntimeError, ImportError):  # no ffmpeg backend
-            imageio.mimwrite(out + ".gif", self.frames, duration=1000 // self.fps)
+        except (ValueError, RuntimeError, ImportError):  # no imageio or no ffmpeg backend
+            write_gif(out + ".gif", self.frames, duration=1000 // self.fps)
 
 
 @HOOKS.register

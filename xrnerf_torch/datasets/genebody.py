@@ -10,9 +10,11 @@ rasterised SMPL depth when present.
 Batches: ray segments ``rays_s`` / ``rays_e`` through pixels of the query
 view's mask, with the frame's context in ``ctx_*`` keys. ``arrays=`` builds
 the dataset in memory (tests, custom captures); otherwise it reads the
-on-disk layout (PIL, which resizes the crops, is imported only then; images
-go through ``utils/png.py:imread``, PNGs without ``imageio``). The same
-arrays and step give the same batches as the JAX package.
+on-disk layout: images, masks and ``smpl_depth`` through
+``utils/png.py:imread`` (PNG and JPEG without ``imageio``), the crops
+resized by ``load/pil_resize.py`` (Pillow's bicubic and nearest, bit for
+bit, without Pillow). The same files, arrays and step give the same arrays
+and batches as the JAX package.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 from ..models.renders.gnr_render import rays_perspective_np
 from ..registry import DATASETS
 from ..utils.png import imread
+from .load.pil_resize import resize_bicubic, resize_nearest
 
 
 def image_cropping(mask: np.ndarray):
@@ -169,8 +172,6 @@ class GeneBodyDataset:
         w2cs = np.zeros((len(cams), 4, 4), np.float32)
         verts_l, rots_l = [], []
 
-        from PIL import Image
-
         for ci, cam in enumerate(cams):
             w2cs[ci] = np.linalg.inv(np.asarray(annots[cam]["c2w"], np.float32))
         for fi, frame in enumerate(frames):
@@ -199,12 +200,8 @@ class GeneBodyDataset:
                 if m.ndim == 3:
                     m = m[..., 0]
                 t, l, b, r = image_cropping(m)
-                img = np.asarray(
-                    Image.fromarray(img[t:b, l:r]).resize((ls, ls), Image.BICUBIC)
-                )
-                m = np.asarray(
-                    Image.fromarray(m[t:b, l:r]).resize((ls, ls), Image.NEAREST)
-                )
+                img = resize_bicubic(img[t:b, l:r], (ls, ls))
+                m = resize_nearest(m[t:b, l:r], (ls, ls))
                 mask = (m > 128).astype(np.float32)
                 imgs[fi, ci] = img[..., :3] / 255.0 * mask[..., None]
                 masks[fi, ci] = mask
@@ -225,11 +222,7 @@ class GeneBodyDataset:
                         dep = imread(dpath[0]).astype(
                             np.float32
                         ) / 1000.0
-                        dep = np.asarray(
-                            Image.fromarray(dep[t:b, l:r]).resize(
-                                (ls, ls), Image.NEAREST
-                            )
-                        )
+                        dep = resize_nearest(dep[t:b, l:r], (ls, ls))
                         depths[fi, ci] = dep
 
         self.imgs, self.masks = imgs, masks

@@ -3,8 +3,8 @@
 ``poses_enu.json`` with llff-style [3, 5] pose rows (last column
 [H, W, focal]), ``scene_scale`` / ``scene_origin``, and ``scale_split``,
 the index where each progressive stage's cameras begin (stage 0 the
-farthest). Images are read by ``utils/png.py:imread``: PNGs without
-``imageio``, JPEGs through it.
+farthest). Images are read by ``utils/png.py:imread``: PNGs and JPEGs
+without ``imageio`` (other formats through it).
 """
 
 from __future__ import annotations

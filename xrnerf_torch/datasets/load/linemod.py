@@ -3,7 +3,8 @@
 ``transforms_{train,val,test}.json`` whose frames carry file paths and an
 ``intrinsic_matrix``, meta-level near/far (floored / ceiled), the spherical
 render path and an optional 2x area half-res. Images are read by
-``utils/png.py:imread``: PNGs without ``imageio``, JPEGs through it.
+``utils/png.py:imread``: PNGs and JPEGs without ``imageio`` (other formats
+through it).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ spherification, the spiral render path and the ``llffhold`` test split.
 Images are read from an ``images_<factor>`` directory when there is one,
 else from ``images/`` and area-downscaled in memory
 (``load/resize.py:area_resize``, OpenCV's ``INTER_AREA`` rounding for
-``uint8``). Images are read by ``utils/png.py:imread``: PNGs without
-``imageio``, JPEGs through it.
+``uint8``). Images are read by ``utils/png.py:imread``: PNGs and JPEGs
+without ``imageio`` (other formats through it).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@
 ``intrinsics.txt`` (a full matrix or an "f cx cy 0" line), the ``bbox.txt``
 global domain, near/far from ``near_and_far.txt`` or from the cameras'
 distances to the box. Images are read by ``utils/png.py:imread``: PNGs
-without ``imageio``, JPEGs through it.
+and JPEGs without ``imageio`` (other formats through it).
 """
 
 from __future__ import annotations

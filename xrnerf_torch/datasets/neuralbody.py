@@ -15,7 +15,8 @@ Layout (standard ZJU-MoCap):
 
 An ``arrays=`` constructor takes the same data in memory
 (``load/synthetic.py:make_synthetic_zju``). Images and masks are read by
-``utils/png.py:imread``: PNGs without ``imageio``, JPEGs through it.
+``utils/png.py:imread``: PNGs and JPEGs without ``imageio`` (other formats
+through it).
 """
 
 from __future__ import annotations

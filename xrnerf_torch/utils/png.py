@@ -16,22 +16,27 @@ below 8 bits, and on 16-bit colour (Pillow keeps only the high byte of
 each 16-bit RGB, grey + alpha or RGBA sample, which is not the file's
 value).
 
-:func:`imwrite_png` writes ``uint8`` [H, W] / [H, W, 3] / [H, W, 4] with
-filter 0 and ``zlib`` level 6. :func:`imread` is the loaders' reader:
-``.png`` files always go through :func:`imread_png`; other formats (JPEG)
-go through ``imageio``, imported only then, and raise naming the file when
-it is missing.
+:func:`imwrite_png` writes ``uint8`` [H, W] / [H, W, 3] / [H, W, 4] and
+``uint16`` [H, W] (a depth map) with filter 0 and ``zlib`` level 6.
+
+:func:`imread` is the loaders' reader. It goes by a file's first bytes, not
+its name: PNGs go through :func:`imread_png`, JPEGs through
+``utils/jpeg.py:imread_jpeg`` (baseline and extended-sequential, without
+``imageio`` or Pillow either); any other format goes through ``imageio``,
+imported only then, and raises naming the file when it is missing.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 import struct
 import zlib
 
 import numpy as np
 
+from .jpeg import decode_jpeg
+
+JPEG_SOI = b"\xff\xd8\xff"  # SOI and the first byte of the next marker
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -40,14 +45,19 @@ _WRITE_TYPE = {1: 0, 3: 2, 4: 6}
 
 
 def imread(path: str) -> np.ndarray:
-    """An image file as an array: PNG through :func:`imread_png`, anything
-    else through ``imageio``."""
-    if os.path.splitext(path)[1].lower() == ".png":
-        return imread_png(path)
+    """An image file as an array: PNG through :func:`imread_png`, JPEG
+    through ``imread_jpeg``, by their first bytes; anything else through
+    ``imageio``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == SIGNATURE:
+        return decode_png(data, str(path))
+    if data[:3] == JPEG_SOI:
+        return decode_jpeg(data, str(path))
     try:
         import imageio.v2 as imageio
     except ImportError as e:
-        raise ModuleNotFoundError(f"reading {path} needs imageio (only .png files are read without it)") from e
+        raise ModuleNotFoundError(f"reading {path} needs imageio (PNG and JPEG files are read without it)") from e
     return np.asarray(imageio.imread(path))
 
 
@@ -156,16 +166,19 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 
 
 def imwrite_png(path: str, img: np.ndarray) -> None:
-    """Write a ``uint8`` [H, W] / [H, W, 3] / [H, W, 4] array as one IDAT of
-    filter-0 rows compressed at ``zlib`` level 6."""
+    """Write a ``uint8`` [H, W] / [H, W, 3] / [H, W, 4] or ``uint16`` [H, W]
+    array as one IDAT of filter-0 rows compressed at ``zlib`` level 6."""
     img = np.asarray(img)
     channels = 1 if img.ndim == 2 else img.shape[-1] if img.ndim == 3 else 0
-    if img.dtype != np.uint8 or channels not in _WRITE_TYPE:
-        raise ValueError(f"imwrite_png takes uint8 [H, W], [H, W, 3] or [H, W, 4], got {img.dtype} {img.shape}")
+    grey16 = img.dtype == np.uint16 and img.ndim == 2
+    if not grey16 and (img.dtype != np.uint8 or channels not in _WRITE_TYPE):
+        raise ValueError(f"imwrite_png takes uint8 [H, W], [H, W, 3], [H, W, 4] or uint16 [H, W], "
+                         f"got {img.dtype} {img.shape}")
     height, width = img.shape[:2]
-    rows = np.zeros((height, 1 + width * channels), np.uint8)  # filter byte 0, then the row
-    rows[:, 1:] = img.reshape(height, -1)
-    ihdr = struct.pack(">IIBBBBB", width, height, 8, _WRITE_TYPE[channels], 0, 0, 0)
+    data = img.astype(">u2").view(np.uint8) if grey16 else img
+    rows = np.zeros((height, 1 + data[0].size), np.uint8)  # filter byte 0, then the row
+    rows[:, 1:] = data.reshape(height, -1)
+    ihdr = struct.pack(">IIBBBBB", width, height, 16 if grey16 else 8, _WRITE_TYPE[channels], 0, 0, 0)
     with open(path, "wb") as f:
         f.write(SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
                 + _chunk(b"IEND", b""))
