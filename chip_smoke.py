@@ -296,7 +296,20 @@ Phases, each printed as one JSON line:
              the loader downscales by 8 (``area_resize``) to the manifest's
              hash. 0 launches of the seven kernels in the NeuralBody and GNR
              stages; LLFF's launches of rows 1-2 join the kernels line.
-34. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+34. quality - the quality tools' paths (``tools/torch_quality_*.py``) at
+             their full configurations through the tools' ``build`` and
+             ``train``, steps cut: synth24 (the production hash table, 24 +
+             2 views at 320x320, unfused, Adam 1e-2 / b2 0.99 / eps 1e-15,
+             a grid refresh after each 16 steps) 64 steps in the vertex and
+             64 in the brick layout; NeuralBody (4 frames x 4 cameras at
+             256x256, flax's init, no density bias) 40 steps, with its step-0
+             acc max; GNR (8 cameras at 256x256, 2 hourglass stacks of 128)
+             20 steps and ``reconstruct_gnr`` at ``n_grid`` 64. Each: finite
+             values, the train PSNR rises, row 7 launches once a step per
+             lattice (1 vertex, 2 brick, 0 elsewhere) and rows 1-6 never, and
+             the held-out view's 32x32 centre on the card against the same
+             weights on the CPU (>= 40 dB). Its launches join the kernels line.
+35. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
              A line before it gives the script's total seconds.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
@@ -3933,6 +3946,144 @@ def captures_phase(work_dir):
 
 
 
+# --- 34. quality: the quality tools' paths at their full configurations, cut in steps --------------------
+
+QUALITY_STEPS = {"synth24": 64, "neuralbody": 40, "gnr": 20}  # of the tools' 4,000 / 1,500 / 2,000
+QUALITY_CROP = 32  # the held-out view's centre crop held against the CPU plain path
+QUALITY_WINDOW = {"synth24": 16, "neuralbody": 10, "gnr": 5}  # steps averaged at each end for "the PSNR rises"
+
+
+def quality_tool(name):
+    """``tools/torch_quality_<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_quality_{name}",
+                                                  os.path.join(ROOT, "tools", f"torch_quality_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quality_crop(rays, H, W, keys):
+    """The centre ``QUALITY_CROP`` squared pixels of an eval item's ``keys``
+    (per-ray arrays); the other keys whole."""
+    sl = slice(H // 2 - QUALITY_CROP // 2, H // 2 + QUALITY_CROP // 2)
+    return {k: v.reshape(H, W, -1)[sl, sl].reshape(-1, v.shape[-1]) if k in keys else v for k, v in rays.items()}
+
+
+def quality_phase(work_dir):
+    """34. The three quality tools' paths (``tools/torch_quality_*.py``) at
+    their full configurations through the tools' own ``build`` and ``train``:
+    synth24 (the production hash table, 24 + 2 views at 320^2, unfused) in the
+    vertex and the brick layout, NeuralBody (6,890 vertices, 4 frames x 4
+    cameras at 256^2, flax's init with no density bias), GNR (8 cameras at
+    256^2, 2 hourglass stacks of 128) and its ``reconstruct_gnr`` at ``n_grid``
+    64; steps cut to ``QUALITY_STEPS``. Each run: finite values, the train PSNR
+    rises (the mean of the last ``QUALITY_WINDOW`` steps over the first's),
+    row 7 launches once a step per lattice (1 vertex, 2 brick; NeuralBody and
+    GNR none), rows 1-6 never; the held-out view's 32x32 centre rendered on the
+    card against the same weights on the CPU (>= 40 dB)."""
+    import copy
+
+    from xrnerf_torch.datasets.load.synthetic import make_synthetic_blender
+    from xrnerf_torch.utils.metrics import psnr
+
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    line, launches = {"phase": "quality"}, {}
+
+    def run(name, tool, net, steps, train, eval_rays, H, W, keys, lattices=0):
+        """Train ``steps`` through the tool (``train() -> (every step's PSNR,
+        {name: number})``), count the launches, check, and hold the crop
+        against the CPU."""
+        for f in counters.values():
+            f.launches = 0  # the main path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psnrs, extra = train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[name] = {k: f.launches for k, f in counters.items()}  # and ends here
+        want = {k: (lattices * steps if k == "scatter_add_rows" else 0) for k in counters}
+        if launches[name] != want:
+            raise AssertionError(f"quality {name}: launches {launches[name]}, expected {want}")
+        n = QUALITY_WINDOW[name.split("_")[0]]
+        first, last = float(np.mean(psnrs[:n])), float(np.mean(psnrs[-n:]))
+        if not (all(math.isfinite(v) for v in psnrs + list(extra.values())) and last > first):
+            raise AssertionError(f"quality {name}: train PSNR {first} -> {last}, {extra}")
+        crop = quality_crop(eval_rays, H, W, keys)
+        card = tool.render(net, crop, "cuda", QUALITY_CROP ** 2)
+        t0 = time.perf_counter()
+        cpu = tool.render(copy.deepcopy(net).cpu(), crop, "cpu", QUALITY_CROP ** 2)
+        vs_cpu = {"rgb_psnr_db": float(psnr(card, cpu)), "cpu_s": time.perf_counter() - t0,
+                  "card_rgb_mean": float(card.mean())}
+        if not (np.isfinite(card).all() and vs_cpu["rgb_psnr_db"] >= 40.0):
+            raise AssertionError(f"quality {name}: card vs CPU on the held-out crop {vs_cpu} (bar: 40 dB)")
+        line[name] = {"steps": steps, "seconds": secs, "ms_per_step": secs / steps * 1e3,
+                      "train_psnr_first": first, "train_psnr_last": last,
+                      "launches": {k: v for k, v in launches[name].items() if v}, "crop_vs_cpu": vs_cpu, **extra}
+
+    # synth24: the scene as PNGs, read back by HashNerfDataset; vertex, then brick
+    tool = quality_tool("synth24")
+    t0 = time.perf_counter()
+    scene = make_synthetic_blender(os.path.join(work_dir, "synth24"), n_train=24, n_val=2, n_test=2, H=320, W=320)
+    line["synth24_scene_s"] = time.perf_counter() - t0
+    steps = QUALITY_STEPS["synth24"]
+    for layout in ("vertex", "brick"):
+        net, ds = tool.build(scene, layout, 4096, "cuda", SEED)
+        vi = int(ds.i_val[0])
+
+        def train():
+            _, psnrs, _ = tool.train(net, ds, steps, "cuda", SEED, log_every=0)
+            return psnrs, {"occupied": float(net.grid_bitfield.float().mean())}
+
+        run(f"synth24_{layout}", tool, net, steps, train, ds.image_rays(vi), ds.H, ds.W, ("rays_o", "rays_d"),
+            lattices=2 if layout == "brick" else 1)
+        del net, ds
+        torch.cuda.empty_cache()
+
+    # NeuralBody from flax's init, no density bias; the held-out camera of frame 0
+    tool = quality_tool("neuralbody")
+    net, ds, _ = tool.build(256, 1024, "cuda", SEED)
+    steps = QUALITY_STEPS["neuralbody"]
+
+    def train():
+        _, psnrs, acc_max, _ = tool.train(net, ds, steps, 5e-4, "cuda", SEED, log_every=0)
+        return psnrs, {"step0_acc_max": acc_max}
+
+    rays, _ = ds.eval_item(0)
+    run("neuralbody", tool, net, steps, train, rays, ds.H, ds.W, tool.RAY_KEYS)
+    del net, ds
+    torch.cuda.empty_cache()
+
+    # GNR: cameras 4-6 supervise, camera 7 held out; then the mesh at n_grid 64
+    tool = quality_tool("gnr")
+    net, ds, arrays = tool.build(256, 1024, "cuda", SEED)
+    steps = QUALITY_STEPS["gnr"]
+
+    def train():
+        losses, psnrs, _ = tool.train(net, ds, steps, 1e-4, "cuda", SEED, log_every=0)
+        return psnrs, {"final_loss": losses[-1]}
+
+    rays, _ = ds.eval_item(ds.test_pairs.index((0, tool.HELD_OUT)))
+    run("gnr", tool, net, steps, train, rays, ds.H, ds.W, ("rays_s", "rays_e"))
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh = tool.mesh_error(net, ds, arrays, "cuda")
+    torch.cuda.synchronize()
+    line["gnr"]["mesh"] = dict(mesh, n_grid=tool.MESH["n_grid"], seconds=time.perf_counter() - t0)
+    launches["gnr_mesh"] = {k: f.launches for k, f in counters.items()}
+    if any(launches["gnr_mesh"].values()) or not all(math.isfinite(v) for v in mesh.values()):
+        raise AssertionError(f"quality gnr mesh: {mesh}, launches {launches['gnr_mesh']}")
+    del net, ds
+    torch.cuda.empty_cache()
+    line["launches"] = {k: sum(launches[s][k] for s in launches) for k in counters}
+    line["seconds"] = time.perf_counter() - t_phase
+    return line
+
+
 def nerf_counters():
     """The launch counters of the two vanilla-NeRF kernels."""
     from xrnerf_torch.ops import fused_nerf_mlp as fm
@@ -4175,10 +4326,18 @@ def main() -> int:
         emit(captures)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+
+    # 34. quality: the quality tools' paths at their full configurations, cut in steps
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_quality_")
+    try:
+        quality = quality_phase(work_dir)
+        emit(quality)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
     check_card_flags("end")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
-    # 34. kernels
+    # 35. kernels
     k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
     keys = ("rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
@@ -4186,18 +4345,19 @@ def main() -> int:
          "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:150",
          "launches": main_path_launches + train_launches["fused_nerf_mlp_fwd"] + kilo_launches
          + multi["launches"]["fused_nerf_mlp_fwd"] + files["launches"]["fused_nerf_mlp_fwd"]
-         + captures["launches"]["fused_nerf_mlp_fwd"],
+         + captures["launches"]["fused_nerf_mlp_fwd"] + quality["launches"]["fused_nerf_mlp_fwd"],
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()), **{k: k1[k] for k in keys}},
         {"name": "fused_nerf_mlp_bwd", "route": "cuda", "source": "xrnerf_torch/csrc/fused_nerf_mlp_bwd.cu",
          "replaces": "xrnerf_tpu/ops/pallas/fused_nerf_mlp.py:159",
          "launches": train_launches["fused_nerf_mlp_bwd"] + multi["launches"]["fused_nerf_mlp_bwd"]
-         + files["launches"]["fused_nerf_mlp_bwd"] + captures["launches"]["fused_nerf_mlp_bwd"],
+         + files["launches"]["fused_nerf_mlp_bwd"] + captures["launches"]["fused_nerf_mlp_bwd"]
+         + quality["launches"]["fused_nerf_mlp_bwd"],
          "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
          "min_cos": min(r["min_cos"] for r in bwd_rows.values()), **{k: b1[k] for k in keys}},
         *({"name": name, "route": "cuda", "source": f"xrnerf_torch/csrc/fused_mlp_{name[-3:]}.cu",
            "replaces": f"xrnerf_tpu/ops/pallas/fused_mlp.py:{line}",
            "launches": ngp_launches.get(name, 0) + ngp_train_launches[name] + multi["launches"][name]
-           + files["launches"][name] + captures["launches"][name],
+           + files["launches"][name] + captures["launches"][name] + quality["launches"][name],
            "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
            **{k: rows[name][262_144][k] for k in keys}}
           for name, line, rows in (("fused_mlp2_fwd", 64, tiny_rows), ("fused_mlp2_bwd", 77, tiny_bwd_rows),
@@ -4205,7 +4365,8 @@ def main() -> int:
         {"name": "scatter_add_rows", "route": "cuda", "source": "xrnerf_torch/csrc/scatter_rows.cu",
          "replaces": "xrnerf_tpu/ops/pallas/scatter_rows.py:62",
          "launches": ngp_train_launches["scatter_add_rows"] + multi["launches"]["scatter_add_rows"]
-         + files["launches"]["scatter_add_rows"] + captures["launches"]["scatter_add_rows"],
+         + files["launches"]["scatter_add_rows"] + captures["launches"]["scatter_add_rows"]
+         + quality["launches"]["scatter_add_rows"],
          "max_abs_err": max(r["max_abs_err"] for r in scatter_rows.values()),
          **{k: scatter_rows["vertex_step"][k] for k in keys}, "levels": scatter_rows["vertex_step"]["levels"],
          "other_shapes": {c: {k: r[k] for k in ("rows", "width", "num_rows", "ms", "plain_ms", "bound_ms", "library_ms")}
