@@ -7,7 +7,8 @@ Phases, each printed as one JSON line:
 
 1. device  - the card's name and power limit (``nvidia-smi``); the flags
              of ``utils/device.py:configure_card`` (TF32 off, cuDNN's
-             search on), checked again at the end.
+             search on, bf16 and fp16 products summed in f32), checked
+             again at the end.
 2. build   - the CUDA kernels ``xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu``,
              ``fused_nerf_mlp_bwd.cu``, ``fused_mlp_fwd.cu``,
              ``fused_mlp_bwd.cu`` and ``scatter_rows.cu``, one nvcc each,
@@ -220,15 +221,15 @@ Phases, each printed as one JSON line:
              ``make_synthetic_genebody`` with 48 cameras at 512x512 and its
              sphere made a closed latitude-longitude mesh with SMPL's 6,890
              vertices and 13,776 triangles, so the brute-force SMPL queries
-             pay what a real capture pays. 20 steps and a resume to 22
+             pay what a real capture pays. 10 steps and a resume to 12
              (finite losses, moving parameters); a profiled step by group
              (the mesh tile, GroupNorm, conv, SGEMM, grid sampling, the rest)
              and its host syncs; ``nearest_points`` and ``inside_mesh``
              alone at the step's 262,144 points; gradients card vs CPU on 64
              rays (per leaf cosine > 0.999, norm ratio 0.999-1.001, no
              gradient for the encoder's leaves on either side, the near-tie
-             points counted); the central 128x128 window of a held-out view
-             (16 chunks of 1,024 rays; the full frame's time derived as 256
+             points counted); the central 64x64 window of a held-out view
+             (4 chunks of 1,024 rays; the full frame's time derived as 256
              chunks) and its 16x16 centre against the CPU (>= 40 dB on rgb
              and acc); ``reconstruct_gnr`` at ``n_grid`` 64 with 3 smoothing
              passes (seconds, vertices, faces, radial error against the
@@ -309,7 +310,31 @@ Phases, each printed as one JSON line:
              lattice (1 vertex, 2 brick, 0 elsewhere) and rows 1-6 never, and
              the held-out view's 32x32 centre on the card against the same
              weights on the CPU (>= 40 dB). Its launches join the kernels line.
-35. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
+35. bf16   - the seven networks of phases 6-30 with ``dtype="bfloat16"``
+             (flax's compute dtype: f32 parameters, bf16 products) at their
+             configs' full widths on the same scenes: vanilla NeRF unfused,
+             Mip-NeRF, the KiloNeRF finetune (flax-style init, the analytic
+             grid), BungeeNeRF, NeuralBody, AniNeRF (``train_pose``) and GNR.
+             Each: 10 steps and a resume by 2 (finite, moving, f32
+             parameters, 0 launches of the seven kernels), its ms/step beside
+             its f32 line's; the gradients against the CPU's bf16 path on the
+             f32 phase's gradient batch with cuDNN's algorithm search off
+             (per leaf cosine > 0.99, norm ratio 0.93-1.07, no leaf excepted;
+             GNR at flax's init from the seed, the others at the trained
+             weights), and in that step the control that the card computed
+             in bf16 (bf16 products in the forward, every ``Dense`` / ``Conv``
+             output bf16, none in the f32 network's step); the 32x32 centre
+             of a view (GNR 16x16)
+             rendered on the card and on the CPU's bf16 path in the same
+             chunks (>= 40 dB on rgb and acc). Then the fused vanilla
+             network (rows 1-2) with ``dtype`` bf16 against f32: the same
+             bits in a render and in a step's gradients.
+36. tools  - ``tools/torch_bench_kilonerf.py`` (bf16 and ``--f32``) and
+             ``tools/torch_bench_ngp.py --components`` at their defaults,
+             each a process of its own: exit 0, the card's line first, every
+             number line parsed (ms/frame; train ms/step, march, NGPField
+             and HashEncoding forward and forward + backward ms).
+37. kernels - one line ``{"kernels": [...]}`` per the port's kernel table.
              A line before it gives the script's total seconds.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
@@ -1778,6 +1803,7 @@ def mip_phases(work_dir):
     emit(profile_device(lambda: srv.render_image(rays, H, H), ms_frame[0], "mip_profile", MIP_GROUPS, top=12))
     del srv, views, out
     torch.cuda.empty_cache()
+    return ms_step
 
 
 KILO_STEPS, KILO_LOG = 40, 10
@@ -2291,7 +2317,7 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
     emit(kilo_profile(lambda: net(big_dev), big_ms, "kilo_budget_chunk_profile"))
     del srv, net, out
     torch.cuda.empty_cache()
-    return occ_launches + distill_launches
+    return occ_launches + distill_launches, ms_step
 
 
 # --- BungeeNeRF, NeuralBody and AniNeRF: f32 paths, none of the seven kernels ---
@@ -2524,9 +2550,10 @@ def frame_f32(model_cfg, ds, pt, views, chunk, what):
 
 
 def crop_vs_cpu(model_cfg, pt, rays, out, H, W, ys, xs, chunk, what):
-    """The 32x32 crop (``ys``, ``xs``) re-rendered on the CPU with the same
-    weights: >= 40 dB on rgb and acc, and content on the CPU side (mean(acc^2)
-    >= 1e-3: a background-only card render reads <= 30 dB on acc)."""
+    """The crop (``ys``, ``xs``; 32x32 in the f32 phases) re-rendered on the
+    CPU with the same weights: >= 40 dB on rgb and acc, and content on the
+    CPU side (mean(acc^2) >= 1e-3: a background-only card render reads
+    <= 30 dB on acc)."""
     from xrnerf_torch import build_network
     from xrnerf_torch.core.renderer import render_image
     from xrnerf_torch.utils.metrics import psnr
@@ -2536,7 +2563,7 @@ def crop_vs_cpu(model_cfg, pt, rays, out, H, W, ys, xs, chunk, what):
     crop = {k: v if k.startswith("ctx_") or np.ndim(v) == 0 else v.reshape(H, W, -1)[ys, xs].reshape(-1, v.shape[-1])
             for k, v in rays.items()}
     t0 = time.perf_counter()
-    cpu = render_image(net, crop, 32, 32, chunk=chunk, keys=("rgb", "acc"))
+    cpu = render_image(net, crop, len(range(H)[ys]), len(range(W)[xs]), chunk=chunk, keys=("rgb", "acc"))
     got = {"rgb_psnr_db": float(psnr(out["rgb"][ys, xs], cpu["rgb"])),
            "acc_psnr_db": float(psnr(out["acc"][ys, xs], cpu["acc"])),
            "cpu_acc_mean": float(cpu["acc"].mean()), "cpu_acc_sq_mean": float((cpu["acc"] ** 2).mean()),
@@ -2711,7 +2738,8 @@ def human_phases(work_dir):
 GNR_RINGS, GNR_SEGMENTS = 84, 82  # a closed sphere of 84 * 82 + 2 = 6,890 vertices and 13,776 triangles, as SMPL's
 GNR_RADIUS = 0.3  # make_synthetic_genebody's sphere
 GNR_CAMS, GNR_SIZE = 48, 512  # GeneBody's 48 cameras (source views 1, 13, 25, 37 distinct) at load_size
-GNR_WINDOW, GNR_CROP = 128, 16  # a frame's central window (16 chunks of 1,024 rays) and its crop against the CPU
+GNR_STEPS = 10  # two logging windows and a resume by 2 (the phase's time: a step is ~2.7 s)
+GNR_WINDOW, GNR_CROP = 64, 16  # a frame's central window (4 chunks of 1,024 rays) and its crop against the CPU
 GNR_GRID, GNR_LAPLACIAN = 64, 3
 GNR_GRAD_RAYS = 64  # card against CPU; the CPU's mesh tile stays short
 GNR_TIE_EPS = 1e-5  # |w - 0.5| under which a winding number's sign is a tie
@@ -2851,9 +2879,9 @@ def gnr_ties(batch, n_samples, load_size, mesh_chunk):
 
 def gnr_phase(work_dir):
     """GNR at the full width of ``configs/gnr/gnr_genebody.py`` on
-    ``gnr_arrays()``: 20 steps and a resume to 22, a profiled step by group,
+    ``gnr_arrays()``: 10 steps and a resume to 12, a profiled step by group,
     the SMPL queries alone at a step's points, card-vs-CPU gradients on 64
-    rays, the central 128x128 window of a held-out 512x512 view (16 chunks)
+    rays, the central 64x64 window of a held-out 512x512 view (4 chunks)
     and its 16x16 centre against the CPU, and ``reconstruct_gnr`` at
     ``n_grid`` 64; 0 launches of the seven kernels across the phase."""
     from xrnerf_torch import build_dataset, build_network, load_config
@@ -2876,9 +2904,9 @@ def gnr_phase(work_dir):
         raise AssertionError(f"gnr: source views {ds.input_views} are not four distinct views")
     n_pts = ds.N_rand * model_cfg["n_samples"]
 
-    # training: 20 steps, a checkpoint, a resume to 22
+    # training: GNR_STEPS steps, a checkpoint, a resume by 2
     tr, windows, ms_step, train_peak = train_f32(model_cfg, ds, cfg["optimizer"], os.path.join(work_dir, "gnr"),
-                                                 "gnr_train", eval_chunk=chunk)
+                                                 "gnr_train", steps=GNR_STEPS, eval_chunk=chunk)
     tb = tr._put_batch(ds.train_batch(10_000))
     prof = gnr_profile(lambda: tr.train_step(tb, 10_000), ms_step, "gnr_profile")
     n_syncs, inside_ops = count_host_syncs(lambda: tr.train_step(tb, 10_001))
@@ -2961,7 +2989,7 @@ def gnr_phase(work_dir):
             "rig": {"cams": GNR_CAMS, "size": GNR_SIZE, "source_views": list(ds.input_views),
                     "smpl_vertices": int(len(arrays["smpl_t_verts"])), "smpl_triangles": int(len(arrays["smpl_faces"])),
                     "arrays_s": arrays_s},
-            "N_rand": ds.N_rand, "n_samples": model_cfg["n_samples"], "steps": F32_STEPS, "resumed_to": F32_STEPS + 2,
+            "N_rand": ds.N_rand, "n_samples": model_cfg["n_samples"], "steps": GNR_STEPS, "resumed_to": GNR_STEPS + 2,
             "window_losses": [w["loss"] for w in windows], "window_ms_per_step": [w["ms_per_step"] for w in windows],
             "ms_per_step": ms_step, "rays_per_s": ds.N_rand / (ms_step * 1e-3), "points_per_step": n_pts,
             "device_busy_ms": prof["device_busy_ms"], "idle_share": prof["idle_share"],
@@ -2975,7 +3003,7 @@ def gnr_phase(work_dir):
                                "seconds": recon_s, "vertices": int(len(rverts)), "faces": int(len(rfaces)),
                                "radial_mae": float(radial.mean()), "radius": GNR_RADIUS},
             "kernel_launches": 0,
-            "cuts": {"steps": f"{F32_STEPS} of the config's {cfg['max_iters']}",
+            "cuts": {"steps": f"{GNR_STEPS} of the config's {cfg['max_iters']}",
                      "frame": f"the central {GNR_WINDOW}x{GNR_WINDOW} of {H}x{W} (the full frame's time is derived)",
                      "n_grid": f"{GNR_GRID} (the JAX driver's default is 128)"},
             "seconds": time.perf_counter() - t_phase}
@@ -4084,6 +4112,342 @@ def quality_phase(work_dir):
     return line
 
 
+# --- 35. bf16: the networks' compute dtype (flax's ``dtype``) at full width ----------------
+
+BF16 = "bfloat16"
+BF16_STEPS = 10  # two logging windows of F32_LOG, then a resume by 2
+BF16_CROP = 32  # the centre crop rendered on the card and on the CPU, one chunk on both sides
+BF16_COS, BF16_RATIO = 0.99, (0.93, 1.07)  # tests/test_fused_nerf_mlp.py:45-131, card bf16 against CPU bf16
+BF16_NULL_REL = 1e-2  # a gradient zero in exact arithmetic holds a few bf16 ulps (2^-8) of the largest entry
+BF16_KILO_DENSITY_BIAS = 10.0
+# networks whose gradients are compared at flax's init from SEED, not at the trained weights: GNR's trunk
+# gradient, a few steps into training, moves with the bf16 rounding of the frozen encoder's features as
+# much as with anything the card computes (the same card with another cuDNN algorithm for the encoder's
+# convs moves it 25-35 % in norm; with the CPU's features the card's gradients meet the bar; PERF.md 6)
+BF16_GRADS_AT_INIT = ("gnr",)
+# each network's f32 line and its ms/step there (vanilla: the fused network's ``train`` line)
+BF16_F32_LINE = {"nerf": "train", "mipnerf": "mip_train", "kilonerf": "kilo_train", "bungeenerf": "bungee",
+                 "neuralbody": "neuralbody", "aninerf": "aninerf", "gnr": "gnr"}
+
+
+PRODUCT_OPS = ("mm", "addmm", "bmm", "baddbmm", "convolution", "convolution_backward")
+
+
+class ProductDtypes:
+    """Within the block, the card's matrix products and convolutions (the
+    aten ops of ``PRODUCT_OPS``, forward and backward) counted by their first
+    operand's dtype, and the port's ``utils.dtype`` layers (``Dense``,
+    ``Conv2d``, ``Conv3d``) of ``net`` counted by their output's dtype: what
+    shows that a network computed in its ``dtype``."""
+
+    def __init__(self, net):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from xrnerf_torch.utils import dtype as dt
+
+        counts = self.products = {}
+        self.layers = {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.overloadpacket.__name__ in PRODUCT_OPS:
+                    key = str(next(a for a in args if isinstance(a, torch.Tensor)).dtype).replace("torch.", "")
+                    counts[key] = counts.get(key, 0) + 1
+                return func(*args, **(kwargs or {}))
+
+        def hook(module, inputs, out):
+            key = str(out.dtype).replace("torch.", "")
+            self.layers[key] = self.layers.get(key, 0) + 1
+
+        self.mode = Mode()
+        self.handles = [m.register_forward_hook(hook) for m in net.modules()
+                        if isinstance(m, (dt.Dense, dt.Conv2d, dt.Conv3d))]
+        self.has_layers = bool(self.handles)
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+        for h in self.handles:
+            h.remove()
+
+
+class CudnnFixed:
+    """Within the block, cuDNN's algorithm search off and its deterministic
+    algorithms on (a gradient comparison runs one known algorithm); the
+    card's flags are restored on exit."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = self.saved
+
+
+def grads_bf16(model_cfg, sd, batch, what, null=()):
+    """The card's bf16 loss gradients against the CPU's bf16 path on one
+    batch (deterministic path, same weights, cuDNN's algorithm search off):
+    per leaf cosine > 0.99 and norm ratio 0.93-1.07, no leaf excepted; a
+    leaf zero on the CPU is zero on the card. ``null`` leaves are zero in
+    exact arithmetic: under ``BF16_NULL_REL`` of the largest entry on both
+    sides. The card's step is also the control that it computed in bf16
+    (:class:`ProductDtypes`): bf16 products in the forward (KiloNeRF's
+    backward products are f32, JAX's transpose of ``preferred_element_type``),
+    every ``utils.dtype`` layer's output bf16, and the same step of the f32
+    network on the card with no bf16 product."""
+    from xrnerf_torch import build_network
+
+    def run(cfg, device):
+        net = build_network(cfg, device=device)
+        net.load_state_dict(sd)
+        b = {k: torch.from_numpy(np.require(v, requirements="C")).to(device) for k, v in batch.items()}
+        watch = {}
+        with CudnnFixed():
+            if device == "cuda":
+                with ProductDtypes(net) as fwd:
+                    loss = net.loss(net(b, generator=None, train=True), b)[0]
+                with ProductDtypes(net) as bwd:
+                    loss.backward()
+                torch.cuda.synchronize()
+                watch = {"forward_products": fwd.products, "backward_products": bwd.products,
+                         "layer_outputs": fwd.layers, "has_layers": fwd.has_layers}
+            else:
+                loss = net.loss(net(b, generator=None, train=True), b)[0]
+                loss.backward()
+        return {k: p.grad.detach().float().cpu() for k, p in net.named_parameters() if p.grad is not None}, \
+            loss.item(), watch
+
+    (card, card_loss, watch), (cpu, cpu_loss, _) = run(model_cfg, "cuda"), run(model_cfg, "cpu")
+    f32_watch = run(dict(model_cfg, dtype="float32"), "cuda")[2]
+    control = {"bf16": watch, "f32": {k: f32_watch[k] for k in ("forward_products", "backward_products")}}
+    if not (watch["forward_products"].get(BF16, 0)
+            and set(watch["layer_outputs"]) <= {BF16} and (watch["layer_outputs"] or not watch["has_layers"])
+            and not f32_watch["forward_products"].get(BF16, 0) and not f32_watch["backward_products"].get(BF16, 0)):
+        raise AssertionError(f"{what}: the card's step did not compute in bf16 (or the f32 one did): {control}")
+    if sorted(card) != sorted(cpu):
+        raise AssertionError(f"{what}: the card and the CPU differ in which leaves have gradients")
+    scale = max(float(v.abs().max()) for v in cpu.values())
+    nulls = {k: max(float(card[k].abs().max()), float(cpu[k].abs().max())) for k in null}
+    if any(m > BF16_NULL_REL * scale for m in nulls.values()):
+        raise AssertionError(f"{what}: a leaf that should hold rounding only {nulls}, largest entry {scale}")
+    nonzero = {k: v for k, v in cpu.items() if bool(v.any()) and k not in nulls}
+    stray = {k: float(v.abs().max()) for k, v in card.items() if k not in nonzero and k not in nulls and bool(v.any())}
+    if stray:
+        raise AssertionError(f"{what}: zero on the CPU but not on the card (max |grad|): {stray}")
+    per_leaf = check_leaves(what, {k: card[k] for k in nonzero}, nonzero, BF16_COS, BF16_RATIO)
+    worst = min(per_leaf, key=lambda k: per_leaf[k]["cos"])
+    rays = batch["rays_o"] if "rays_o" in batch else batch["rays_s"]
+    return {"rays": int(rays.shape[0]), "leaves": len(per_leaf), "loss_card": card_loss, "loss_cpu": cpu_loss,
+            "min_cos": per_leaf[worst]["cos"], "worst_leaf": worst,
+            "ratio_range": [min(v["ratio"] for v in per_leaf.values()), max(v["ratio"] for v in per_leaf.values())],
+            "computed_in": control, **({"null_leaves_max_abs": nulls, "largest_entry": scale} if nulls else {})}
+
+
+def bf16_cases(work_dir):
+    """{name: (config, model overrides, dataset, optimizer, extra Trainer
+    keywords, density bias, gradient batch, crop rays (H = W = BF16_CROP),
+    null leaves)} for the seven networks, each at its config's full width
+    with ``dtype="bfloat16"``, on the scenes of its f32 phase."""
+    from xrnerf_torch import build_dataset, load_config
+
+    def cfg(*path, dataname="lego"):
+        return load_config(os.path.join(ROOT, "configs", *path), dataname=dataname)
+
+    def centre(rays, H, W, n=BF16_CROP):
+        sl_y, sl_x = slice(H // 2 - n // 2, H // 2 + n // 2), slice(W // 2 - n // 2, W // 2 + n // 2)
+        return {k: v if k.startswith("ctx_") or np.ndim(v) == 0 else v.reshape(H, W, -1)[sl_y, sl_x].reshape(
+            -1, v.shape[-1]) for k, v in rays.items()}
+
+    from xrnerf_torch.datasets.rays import get_rays_np
+
+    cases = {}
+    nerf = cfg("nerf", "nerf_blender.py")
+    scene = SphereScene(N_RAND, nerf["data"]["near"], nerf["data"]["far"])
+    o, d = get_rays_np(scene.H, scene.W, scene.K, scene.poses[8])
+    n = scene.H * scene.W
+    image = {"rays_o": o.reshape(-1, 3), "rays_d": d.reshape(-1, 3), "near": np.full((n, 1), scene.near, np.float32),
+             "far": np.full((n, 1), scene.far, np.float32)}
+    cases["nerf"] = ("configs/nerf/nerf_blender.py", dict(nerf["model"], fused=False), scene, nerf["optimizer"], {},
+                     None, SphereScene(256, scene.near, scene.far, seed=SEED + 1000).train_batch(0),
+                     centre(image, scene.H, scene.W), int(nerf["eval_chunk"]), ())
+    mip = cfg("mipnerf", "mipnerf_multiscale.py")
+    mscene = MipSphereScene(N_RAND)
+    cases["mipnerf"] = ("configs/mipnerf/mipnerf_multiscale.py", dict(mip["model"]), mscene,
+                        dict(mip["optimizer"], max_steps=mip["max_iters"]), {}, None,
+                        MipSphereScene(256, seed=SEED + 1000).train_batch(0),
+                        centre(mscene.image_rays(mscene.poses[8], 0)[0], mscene.H, mscene.W),
+                        int(mip["eval_chunk"]), ())
+    fin = cfg("kilonerf", "kilonerf_finetune.py")
+    occ_path = os.path.join(work_dir, "occupancy.npy")
+    kmodel = dict(fin["model"], occupancy_path=occ_path)
+    kscene = KiloSphereScene(int(fin["data"]["N_rand"]), fin["data"]["near"], fin["data"]["far"])
+    np.save(occ_path, kscene.occupancy(KILO_OCC_RES, kmodel["domain_min"], kmodel["domain_max"]))
+    # a random init starts nearly empty (crop acc ~0.007): a density bias, as the human phases set one
+    cases["kilonerf"] = ("configs/kilonerf/kilonerf_finetune.py", kmodel, kscene, fin["optimizer"], {},
+                         ("mlp.sigma_b", BF16_KILO_DENSITY_BIAS),
+                         KiloSphereScene(256, kscene.near, kscene.far, seed=SEED + 1000).train_batch(0),
+                         centre(kscene.image_rays(kscene.poses[8]), kscene.H, kscene.W), int(fin["eval_chunk"]), ())
+    bun = cfg("bungeenerf", "bungee_multiscale.py", dataname="scene")
+    bscene = BungeeSphereScene(int(bun["data"]["N_rand"]), BUNGEE_ITERS_PER_STAGE)
+    cases["bungeenerf"] = ("configs/bungeenerf/bungee_multiscale.py",
+                           dict(bun["model"], iters_per_stage=BUNGEE_ITERS_PER_STAGE), bscene, bun["optimizer"], {},
+                           None, BungeeSphereScene(256, BUNGEE_ITERS_PER_STAGE, seed=SEED + 1000).train_batch(
+                               3 * BUNGEE_ITERS_PER_STAGE),
+                           centre(bscene.image_rays(bscene.poses[32], bscene.H, 3), bscene.H, bscene.W),
+                           int(bun["eval_chunk"]), ())
+    arrays = ani_arrays()
+    for name, path in (("neuralbody", ("neuralbody", "nb_zjumocap.py")),
+                       ("aninerf", ("aninerf", "aninerf_zjumocap_train_pose.py"))):
+        c = cfg(*path, dataname="313")
+        ds = build_dataset(dict(c["data"], datadir=None, arrays=arrays))
+        gds = build_dataset(dict(c["data"], datadir=None, arrays=arrays, N_rand=256, seed=SEED + 1000))
+        rays, gt = ds.eval_item(0)
+        cases[name] = (os.path.join("configs", *path), dict(c["model"]), ds, c["optimizer"], {}, DENSITY_BIAS[name],
+                       gds.train_batch(0), centre(rays, *gt.shape[:2]), int(c["eval_chunk"]), ())
+    gnr = cfg("gnr", "gnr_genebody.py", dataname="synthetic")
+    garrays = gnr_arrays()
+    gds = build_dataset(dict(gnr["data"], datadir=None, arrays=garrays))
+    rays, gt = gds.eval_item(0)
+    # GNR's crop is 16x16, as in its f32 line: the CPU's SMPL tiles stay short
+    cases["gnr"] = ("configs/gnr/gnr_genebody.py", dict(gnr["model"]), gds, gnr["optimizer"], {}, None,
+                    build_dataset(dict(gnr["data"], datadir=None, arrays=garrays, N_rand=GNR_GRAD_RAYS,
+                                       seed=SEED + 1000)).train_batch(0),
+                    centre(rays, *gt.shape[:2], n=GNR_CROP), int(gnr["eval_chunk"]), ("nerf.value2.bias",))
+    return cases
+
+
+def fused_ignores_dtype():
+    """The fused vanilla network (rows 1-2) with ``dtype`` bf16 gives the same
+    bits as with f32: a 1,024-ray render and one step's gradients."""
+    from xrnerf_torch import build_network, load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs", "nerf", "nerf_blender.py"), dataname="lego")
+    rng = np.random.RandomState(SEED + 7)
+    from xrnerf_torch.utils.weights import state_dict_from_jax
+
+    sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax(
+        {"mlp_coarse": seeded_mlp_tree(rng), "mlp_fine": seeded_mlp_tree(rng)}).items()}
+    batch = SphereScene(1024, cfg["data"]["near"], cfg["data"]["far"], seed=SEED + 7).train_batch(0)
+    b = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    got = {}
+    for dtype in ("float32", BF16):
+        net = build_network(dict(cfg["model"], fused=True, perturb=False, dtype=dtype), device="cuda")
+        net.load_state_dict(sd)
+        out = net(b, train=False)
+        tout = net(b, generator=None, train=True)
+        net.loss(tout, b)[0].backward()
+        got[dtype] = ({k: v.clone() for k, v in out.items()}, {k: p.grad.clone() for k, p in net.named_parameters()})
+    same_out = all(torch.equal(got["float32"][0][k], got[BF16][0][k]) for k in got[BF16][0])
+    same_grads = all(torch.equal(got["float32"][1][k], got[BF16][1][k]) for k in got[BF16][1])
+    if not (same_out and same_grads):
+        raise AssertionError(f"fused vanilla NeRF: bf16 and f32 differ (outputs equal {same_out}, "
+                             f"gradients equal {same_grads})")
+    return {"rays": 1024, "outputs_equal": same_out, "gradients_equal": same_grads}
+
+
+def bf16_phase(work_dir, f32_ms):
+    """35. The seven networks with ``dtype="bfloat16"`` at their configs' full
+    widths: ``BF16_STEPS`` training steps and a resume (finite, moving, 0
+    launches of the seven kernels), the gradients against the CPU's bf16
+    path, a ``BF16_CROP`` squared centre crop rendered on the card and on the
+    CPU's bf16 path in the same chunks (>= 40 dB on rgb and acc), ms/step
+    beside the f32 line's (``f32_ms``: network -> ms/step); and the fused vanilla network's
+    bits with ``dtype`` bf16."""
+    from xrnerf_torch import build_network
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    cases = bf16_cases(work_dir)
+    line = {"phase": "bf16", "dtype": BF16, "steps": BF16_STEPS, "resumed_to": BF16_STEPS + 2,
+            "scenes_s": time.perf_counter() - t0, "networks": {}}
+    for name, (config, model, ds, optimizer, kw, density_bias, gbatch, crop, chunk, null) in cases.items():
+        t_net = time.perf_counter()
+        model_cfg = dict(model, dtype=BF16)
+        wd = os.path.join(work_dir, name)
+        tr, windows, ms_step, peak = train_f32(model_cfg, ds, optimizer, wd, f"bf16_{name}_train", steps=BF16_STEPS,
+                                               density_bias=density_bias, eval_chunk=chunk, **kw)
+        sd = {k: v.detach().cpu() for k, v in tr.network.state_dict().items()}
+        if any(v.dtype != torch.float32 for k, v in tr.network.named_parameters()):
+            raise AssertionError(f"bf16 {name}: a parameter is not f32")
+        del tr
+        torch.cuda.empty_cache()
+        gsd = sd
+        if name in BF16_GRADS_AT_INIT:
+            init = build_network(model_cfg, device="cpu")
+            init.reset_parameters(torch.Generator().manual_seed(SEED))
+            gsd = init.state_dict()
+            del init
+        grads = dict(grads_bf16(model_cfg, gsd, gbatch, f"bf16_{name}_grads", null=null),
+                     weights="init" if name in BF16_GRADS_AT_INIT else "trained")
+        pt = os.path.join(work_dir, f"{name}_bf16.pt")
+        torch.save(sd, pt)
+        n = int(round(math.sqrt(crop["rays_o" if "rays_o" in crop else "rays_s"].shape[0])))
+        # one chunk of the crop's rays on both sides: no padding rays to render, the same chunk for KiloNeRF
+        srv, out, crop_ms, _ = frame_f32(model_cfg, ds, pt, [(crop, n, n), (crop, n, n)], n * n,
+                                         f"bf16_{name}_crop")
+        del srv
+        vs_cpu = crop_vs_cpu(model_cfg, pt, crop, out, n, n, slice(0, n), slice(0, n), n * n, f"bf16_{name}_crop")
+        line["networks"][name] = {
+            "config": config, "fused": bool(model_cfg.get("fused", False)),
+            "window_losses": [w["loss"] for w in windows], "ms_per_step": ms_step,
+            "f32_ms_per_step": f32_ms.get(name), "f32_line": BF16_F32_LINE[name],
+            "train_peak_mem_gb": peak, "kernel_launches": 0, "grads": grads,
+            "crop": {"H": n, "W": n, "chunk": n * n, "ms": crop_ms, "vs_cpu": vs_cpu},
+            "seconds": time.perf_counter() - t_net}
+        torch.cuda.empty_cache()
+    line["fused_nerf_ignores_dtype"] = fused_ignores_dtype()
+    line["seconds"] = time.perf_counter() - t_phase
+    return line
+
+
+# --- 36. tools: the port's micro-bench tools at their defaults ----------------------------
+
+TOOLS_TIMEOUT_S = 300
+TOOL_RUNS = {  # (tool, flags): the lines each prints after the card's, as regular expressions
+    "kilonerf_bf16": ("tools/torch_bench_kilonerf.py", []),
+    "kilonerf_f32": ("tools/torch_bench_kilonerf.py", ["--f32"]),
+    "ngp": ("tools/torch_bench_ngp.py", ["--components"]),
+}
+_NUM = r"([0-9][0-9,]*\.?[0-9]*)"
+TOOL_LINES = {
+    "kilonerf": {"frame": rf"kilonerf frame .*: {_NUM} ms/frame  {_NUM} Mrays/s .*"},
+    "ngp": {"train": rf"train: {_NUM} ms/step  {_NUM} rays/s", "march": rf"march: {_NUM} ms",
+            "field_fwd": rf"field fwd \([0-9]+ pts\): {_NUM} ms  {_NUM} Mpts/s",
+            "field_fwd_bwd": rf"field fwd\+bwd: {_NUM} ms  {_NUM} Mpts/s",
+            "hashenc_fwd": rf"hashenc fwd: {_NUM} ms  {_NUM} Mpts/s",
+            "hashenc_fwd_bwd": rf"hashenc fwd\+bwd: {_NUM} ms  {_NUM} Mpts/s"},
+}
+
+
+def tools_phase(smi):
+    """36. ``tools/torch_bench_kilonerf.py`` (bf16, and ``--f32``) and
+    ``tools/torch_bench_ngp.py --components`` at their defaults, each a
+    subprocess: exit 0, the card's line first (``smi``), every number line
+    parsed."""
+    import re
+
+    line = {"phase": "tools", "runs": {}}
+    for run, (tool, flags) in TOOL_RUNS.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, tool), *flags], capture_output=True, text=True,
+                              timeout=TOOLS_TIMEOUT_S, cwd=ROOT)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines or lines[0] != smi:
+            raise AssertionError(f"tools {run}: exit {proc.returncode}, first line {lines[:1]} (expected {smi!r}); "
+                                 f"stderr {proc.stderr[-2000:]}")
+        got = {}
+        for key, pattern in TOOL_LINES[run.split("_")[0]].items():
+            hits = [m for m in (re.fullmatch(pattern, ln) for ln in lines[1:]) if m]
+            if len(hits) != 1:
+                raise AssertionError(f"tools {run}: no single line for {key} in {lines}")
+            got[key] = [float(g.replace(",", "")) for g in hits[0].groups()]
+        line["runs"][run] = {"cmd": " ".join([tool, *flags]), "values": got, "lines": lines[1:],
+                             "seconds": time.perf_counter() - t0}
+    return line
+
+
 def nerf_counters():
     """The launch counters of the two vanilla-NeRF kernels."""
     from xrnerf_torch.ops import fused_nerf_mlp as fm
@@ -4091,13 +4455,18 @@ def nerf_counters():
     return {"fused_nerf_mlp_fwd": fm.fused_nerf_mlp_fwd, "fused_nerf_mlp_bwd": fm.fused_nerf_mlp_bwd}
 
 
-# what ``utils.device.configure_card`` promises: f32 matmul and convolutions, cuDNN's algorithm search on
-CARD_FLAGS = {"matmul_tf32": False, "cudnn_tf32": False, "cudnn_benchmark": True}
+# what ``utils.device.configure_card`` promises: f32 matmul and convolutions, cuDNN's algorithm search on, bf16 and
+# fp16 products summed in f32
+CARD_FLAGS = {"matmul_tf32": False, "cudnn_tf32": False, "cudnn_benchmark": True, "matmul_bf16_reduced_sums": False,
+              "matmul_fp16_reduced_sums": False}
 
 
 def card_flags():
-    return {"matmul_tf32": torch.backends.cuda.matmul.allow_tf32, "cudnn_tf32": torch.backends.cudnn.allow_tf32,
-            "cudnn_benchmark": torch.backends.cudnn.benchmark}
+    m = torch.backends.cuda.matmul
+    return {"matmul_tf32": m.allow_tf32, "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+            "cudnn_benchmark": torch.backends.cudnn.benchmark,
+            "matmul_bf16_reduced_sums": m.allow_bf16_reduced_precision_reduction,
+            "matmul_fp16_reduced_sums": m.allow_fp16_reduced_precision_reduction}
 
 
 def check_card_flags(when):
@@ -4243,6 +4612,7 @@ def main() -> int:
     try:
         line, ttr, ds, train_launches = train_phase(model_cfg, cfg, work_dir)
         emit(line)
+        f32_ms = {"nerf": line["ms_per_step"]}  # each network's f32 ms/step, read by the bf16 phase
         batch = ttr._put_batch(ds.train_batch(10_000))
         emit(profile_device(lambda: ttr.train_step(batch, 10_000), line["ms_per_step"], "train_profile"))
         teacher_sd = {k: v.detach().cpu() for k, v in ttr.network.state_dict().items()}  # KiloNeRF's teacher
@@ -4281,25 +4651,23 @@ def main() -> int:
     # 17-20. Mip-NeRF at full width: training, gradients, a profiled step, frames
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_mip_")
     try:
-        mip_phases(work_dir)
+        f32_ms["mipnerf"] = mip_phases(work_dir)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
     # 21-25. KiloNeRF at full width: occupancy, distillation, finetune training, frames
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_kilo_")
     try:
-        kilo_launches = kilo_phases(work_dir, model_cfg, teacher_sd)
+        kilo_launches, f32_ms["kilonerf"] = kilo_phases(work_dir, model_cfg, teacher_sd)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
     # 26-28. BungeeNeRF, NeuralBody and AniNeRF at full width (f32, none of the seven kernels)
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_f32_")
     try:
-        emit(bungee_phase(work_dir))
-        for line in human_phases(work_dir):
+        for line in (bungee_phase(work_dir), *human_phases(work_dir), gnr_phase(work_dir)):  # 30: GNR
             emit(line)
-        # 30. GNR at full width (f32, none of the seven kernels)
-        emit(gnr_phase(work_dir))
+            f32_ms[{"bungee": "bungeenerf"}.get(line["phase"], line["phase"])] = line["ms_per_step"]
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -4334,10 +4702,20 @@ def main() -> int:
         emit(quality)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+    # 35. bf16: the seven networks with dtype="bfloat16" at full width
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    try:
+        emit(bf16_phase(work_dir, f32_ms))
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 36. tools: the micro-bench tools, each a process of its own
+    emit(tools_phase(smi))
     check_card_flags("end")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
-    # 35. kernels
+    # 37. kernels
     k1, b1 = kernel_rows[1_048_576], bwd_rows[786_432]
     keys = ("rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [

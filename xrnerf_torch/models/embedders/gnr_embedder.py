@@ -28,6 +28,12 @@ Three pieces follow flax and ``jax.image`` rather than torch's defaults:
 
 Only group norm is ported: the JAX network never builds the batch-norm
 branch of ``_norm``.
+
+``dtype`` (f32 by default) is flax's compute dtype of every conv
+(``utils/dtype.py:Conv2d``). GroupNorm has none in JAX: it takes its statistics
+in f32, and its f32 scale and bias turn a bf16 input into an f32 output,
+which the next conv casts back. The cubic resize runs in its input's dtype,
+its weights cast to it, as ``jax.image.resize`` does.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...registry import EMBEDDERS
+from ...utils.dtype import Conv2d, resolve_dtype
 from ..fields.nerf_mlp import flax_init_ as nerf_flax_init_
 
 
@@ -66,6 +73,9 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 statistics and output for any input dtype, as flax's (built
+        without ``dtype``, f32 parameters)."""
+        x = x.float()
         n, c = x.shape[:2]
         g = x.reshape(n, self.num_groups, -1)
         mean = g.mean(-1, keepdim=True)
@@ -77,9 +87,9 @@ class GroupNorm(nn.Module):
         return y.reshape(x.shape)
 
 
-def _conv(cin: int, cout: int, k: int, bias: bool = True) -> nn.Conv2d:
+def _conv(cin: int, cout: int, k: int, bias: bool = True, dtype=torch.float32) -> Conv2d:
     """A stride-1 conv with flax's ``SAME`` padding (odd kernels)."""
-    return nn.Conv2d(cin, cout, k, padding=k // 2, bias=bias)
+    return Conv2d(cin, cout, k, padding=k // 2, bias=bias, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -120,9 +130,9 @@ def cubic_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     if (h, w) == tuple(size):
         return x
     if h != size[0]:
-        x = torch.einsum("nchw,hH->ncHw", x, cubic_weight_mat(h, size[0], x.device))
+        x = torch.einsum("nchw,hH->ncHw", x, cubic_weight_mat(h, size[0], x.device).to(x.dtype))
     if w != size[1]:
-        x = torch.einsum("nchw,wW->nchW", x, cubic_weight_mat(w, size[1], x.device))
+        x = torch.einsum("nchw,wW->nchW", x, cubic_weight_mat(w, size[1], x.device).to(x.dtype))
     return x
 
 
@@ -134,16 +144,19 @@ def _resize2x(x: torch.Tensor) -> torch.Tensor:
 # Image encoders
 # ---------------------------------------------------------------------------
 class ConvBlock(nn.Module):
-    """Residual conv block: 3x3 convs at C/2, C/4, C/4, concatenated."""
+    """Residual conv block: 3x3 convs at C/2, C/4, C/4, concatenated.
+    ``dtype``: the convs' compute dtype (the JAX field
+    ``xrnerf_tpu/models/embedders/gnr_embedder.py:43``)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32):
         super().__init__()
+        dt = resolve_dtype(dtype)
         c = out_ch
-        self.bn1, self.conv1 = GroupNorm(in_ch), _conv(in_ch, c // 2, 3, bias=False)
-        self.bn2, self.conv2 = GroupNorm(c // 2), _conv(c // 2, c // 4, 3, bias=False)
-        self.bn3, self.conv3 = GroupNorm(c // 4), _conv(c // 4, c // 4, 3, bias=False)
+        self.bn1, self.conv1 = GroupNorm(in_ch), _conv(in_ch, c // 2, 3, bias=False, dtype=dt)
+        self.bn2, self.conv2 = GroupNorm(c // 2), _conv(c // 2, c // 4, 3, bias=False, dtype=dt)
+        self.bn3, self.conv3 = GroupNorm(c // 4), _conv(c // 4, c // 4, 3, bias=False, dtype=dt)
         if in_ch != c:
-            self.bn4, self.down = GroupNorm(in_ch), _conv(in_ch, c, 1, bias=False)
+            self.bn4, self.down = GroupNorm(in_ch), _conv(in_ch, c, 1, bias=False, dtype=dt)
         else:
             self.down = None
 
@@ -158,14 +171,15 @@ class ConvBlock(nn.Module):
 
 class HourGlass(nn.Module):
     """Recursive hourglass: pool -> recurse -> upsample-add skip; blocks
-    named ``b1_{lv}``, ``b2_{lv}``, ``b2_plus_1``, ``b3_{lv}`` as in flax."""
+    named ``b1_{lv}``, ``b2_{lv}``, ``b2_plus_1``, ``b3_{lv}`` as in flax.
+    ``dtype``: its blocks' (the JAX field ``gnr_embedder.py:77``)."""
 
-    def __init__(self, depth: int, features: int):
+    def __init__(self, depth: int, features: int, dtype=torch.float32):
         super().__init__()
         self.depth = depth
         for lv in range(depth, 0, -1):
             for name in (f"b1_{lv}", f"b2_{lv}", f"b3_{lv}") + (("b2_plus_1",) if lv == 1 else ()):
-                self.add_module(name, ConvBlock(features, features))
+                self.add_module(name, ConvBlock(features, features, dtype))
 
     def _level(self, inp: torch.Tensor, lv: int) -> torch.Tensor:
         up1 = getattr(self, f"b1_{lv}")(inp)
@@ -180,33 +194,36 @@ class HourGlass(nn.Module):
 
 @EMBEDDERS.register
 class HGFilter(nn.Module):
-    """Stacked-hourglass image encoder: [V, 3, H, W] -> [V, hourglass_dim, H/4, W/4]."""
+    """Stacked-hourglass image encoder: [V, 3, H, W] -> [V, hourglass_dim, H/4, W/4]
+    in ``dtype``, the convs' compute dtype (the JAX field
+    ``gnr_embedder.py:106``)."""
 
     def __init__(self, num_stack: int = 4, num_hourglass: int = 2, hourglass_dim: int = 256,
-                 norm: str = "group", hg_down: str = "ave_pool"):
+                 norm: str = "group", hg_down: str = "ave_pool", dtype=torch.float32):
         super().__init__()
+        dt = resolve_dtype(dtype)
         if norm != "group":
             raise ValueError(f"HGFilter: only group norm is ported, got {norm!r}")
         if hg_down not in ("ave_pool", "conv64", "conv128"):
             raise ValueError(f"unknown hg_down {hg_down!r}")
         self.num_stack, self.hg_down = num_stack, hg_down
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, dtype=dt)
         self.bn1 = GroupNorm(64)
         c2 = {"ave_pool": 128, "conv64": 64, "conv128": 128}[hg_down]
-        self.conv2 = ConvBlock(64, c2)
+        self.conv2 = ConvBlock(64, c2, dt)
         if hg_down != "ave_pool":
-            self.down_conv2 = nn.Conv2d(c2, 128, 3, stride=2)
-        self.conv3 = ConvBlock(128, 128)
-        self.conv4 = ConvBlock(128, 256)
+            self.down_conv2 = Conv2d(c2, 128, 3, stride=2, dtype=dt)
+        self.conv3 = ConvBlock(128, 128, dt)
+        self.conv4 = ConvBlock(128, 256, dt)
         for i in range(num_stack):
-            self.add_module(f"m{i}", HourGlass(num_hourglass, 256))
-            self.add_module(f"top_m_{i}", ConvBlock(256, 256))
-            self.add_module(f"conv_last{i}", _conv(256, 256, 1))
+            self.add_module(f"m{i}", HourGlass(num_hourglass, 256, dt))
+            self.add_module(f"top_m_{i}", ConvBlock(256, 256, dt))
+            self.add_module(f"conv_last{i}", _conv(256, 256, 1, dtype=dt))
             self.add_module(f"bn_end{i}", GroupNorm(256))
-            self.add_module(f"l{i}", _conv(256, hourglass_dim, 1))
+            self.add_module(f"l{i}", _conv(256, hourglass_dim, 1, dtype=dt))
             if i < num_stack - 1:
-                self.add_module(f"bl{i}", _conv(256, 256, 1))
-                self.add_module(f"al{i}", _conv(hourglass_dim, 256, 1))
+                self.add_module(f"bl{i}", _conv(256, 256, 1, dtype=dt))
+                self.add_module(f"al{i}", _conv(hourglass_dim, 256, 1, dtype=dt))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         flax_init_(self, generator)
@@ -235,13 +252,15 @@ class HGFilter(nn.Module):
 @EMBEDDERS.register
 class SRFilters(nn.Module):
     """Feature super-resolution: up-sample 2x per order, fusing the image
-    (cubic-resized to each scale): feat [V, C, h, w], images [V, 3, H, W]."""
+    (cubic-resized to each scale): feat [V, C, h, w], images [V, 3, H, W].
+    ``dtype``: the convs' compute dtype (the JAX field
+    ``gnr_embedder.py:160``)."""
 
-    def __init__(self, order: int = 2, out_ch: int = 128, in_ch: int = 256):
+    def __init__(self, order: int = 2, out_ch: int = 128, in_ch: int = 256, dtype=torch.float32):
         super().__init__()
         self.order = order
         for i in range(order + 1):
-            self.add_module(f"conv{i}", _conv((in_ch if i == 0 else out_ch) + 3, out_ch, 3))
+            self.add_module(f"conv{i}", _conv((in_ch if i == 0 else out_ch) + 3, out_ch, 3, dtype=resolve_dtype(dtype)))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         flax_init_(self, generator)

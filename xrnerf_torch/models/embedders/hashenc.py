@@ -58,6 +58,7 @@ import torch.nn as nn
 
 from ...ops.scatter_rows import scatter_add_rows_levels, shard_rows
 from ...parallel.mesh import copy_to, model_group, reduce_from
+from ...utils.dtype import resolve_dtype
 
 # NGP's spatial hash primes (pi1 = 1 for x).
 _PRIMES = (1, 2654435761, 805459861)
@@ -113,7 +114,7 @@ class HashEncoding(nn.Module):
         super().__init__()
         self.n_levels, self.n_features = n_levels, n_features
         self.table_size = 1 << log2_table_size
-        self.dtype = dtype
+        self.dtype = resolve_dtype(dtype)
         scale = per_level_scale(max_res, base_res, n_levels)
         res = _level_resolutions(base_res, scale, n_levels)
         self.resolutions = tuple(int(r) for r in res)
@@ -286,7 +287,7 @@ class BrickHashEncoding(nn.Module):
         self.n_levels, self.n_features, self.n_lattices = n_levels, n_features, n_lattices
         self.smooth = blend == "smooth" and n_lattices > 1
         self.rows = (1 << max(log2_table_size - 3, 4)) // n_lattices  # tb
-        self.dtype = dtype
+        self.dtype = resolve_dtype(dtype)
         scale = per_level_scale(max_res, base_res, n_levels)
         res = _level_resolutions(base_res, scale, n_levels)
         self.resolutions = tuple(int(r) for r in res)

@@ -13,9 +13,9 @@ Padding: flax's ``padding="SAME"`` pads ``total = max((ceil(n / s) - 1) s
 (XLA's rule), so a stride-2 conv over an even size pads 0 before and 1
 after; ``Conv3d``'s symmetric ``padding=1`` would shift the output grid by
 one voxel. The port pads explicitly with ``F.pad`` and convolves with
-``padding=0`` wherever the two pads differ. f32 throughout (cuDNN on the
-card, TF32 off as ``utils.device.configure_card`` sets it): the JAX
-embedder runs plain ``nn.Conv`` and reaches no Pallas kernel.
+``padding=0`` wherever the two pads differ. cuDNN on the card (TF32 off as
+``utils.device.configure_card`` sets it), in ``dtype`` (f32 by default):
+the JAX embedder runs plain ``nn.Conv`` and reaches no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils.dtype import Conv3d, resolve_dtype
 from ..fields.nerf_mlp import flax_init_
 
 
@@ -81,29 +82,38 @@ def same_pads(size: int, stride: int, k: int = 3) -> Tuple[int, int]:
 
 
 def conv3d_same(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` (built with ``padding=0``) over [1, C, D, H, W] with flax's SAME pads."""
+    """``conv`` (built with ``padding=0``; a ``utils.dtype.Conv3d`` computes
+    in its ``dtype``) over [1, C, D, H, W] with flax's SAME pads."""
     pads = [same_pads(n, s, k) for n, s, k in zip(x.shape[2:], conv.stride, conv.kernel_size)]
     if all(lo == hi for lo, hi in pads):  # symmetric: the conv pads, no copy
-        return F.conv3d(x, conv.weight, conv.bias, conv.stride, [lo for lo, _ in pads])
+        pad = [lo for lo, _ in pads]
+        return conv(x, pad) if isinstance(conv, Conv3d) else F.conv3d(x, conv.weight, conv.bias, conv.stride, pad)
     (d0, d1), (h0, h1), (w0, w1) = pads
     return conv(F.pad(x, (w0, w1, h0, h1, d0, d1)))
 
 
 class SmplEmbedder(nn.Module):
+    """``dtype`` is flax's compute dtype of the codes and the convs (the JAX
+    field ``xrnerf_tpu/models/embedders/neuralbody.py:84``: ``nn.Embed``
+    ``:96`` and the ``SAME`` convs ``:101``): the scatter-mean sums codes and
+    counts in ``dtype``, each level's volume is sampled in f32 (``:110``)."""
+
     def __init__(
         self,
         n_verts: int = 6890,
         code_dim: int = 16,
         grid_dims: Tuple[int, int, int] = (96, 96, 96),
         widths: Sequence[int] = (32, 32, 32, 32),  # per downsample level
+        dtype=torch.float32,
     ):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.n_verts, self.grid_dims, self.widths = n_verts, tuple(grid_dims), tuple(widths)
         self.vertex_codes = nn.Embedding(n_verts, code_dim)
         cin = code_dim
         for lvl, width in enumerate(self.widths):
-            setattr(self, f"conv_{lvl}a", nn.Conv3d(cin, width, 3, stride=1))
-            setattr(self, f"conv_{lvl}b", nn.Conv3d(width, width, 3, stride=2 if lvl > 0 else 1))
+            setattr(self, f"conv_{lvl}a", Conv3d(cin, width, 3, stride=1, dtype=self.dtype))
+            setattr(self, f"conv_{lvl}b", Conv3d(width, width, 3, stride=2 if lvl > 0 else 1, dtype=self.dtype))
             cin = width
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -114,12 +124,13 @@ class SmplEmbedder(nn.Module):
     def forward(self, verts, pts, bmin, bmax) -> torch.Tensor:
         """verts [V, 3] posed vertices (vertex ids 0..V-1), pts [P, 3] query
         points, bmin / bmax [3] -> features [P, sum(widths)]."""
-        vol = voxelize_codes(verts, self.vertex_codes.weight, bmin, bmax, self.grid_dims)
+        dt = self.dtype
+        vol = voxelize_codes(verts, self.vertex_codes.weight.to(dt), bmin, bmax, self.grid_dims)
         rel = torch.clamp((pts - bmin) / torch.clamp(bmax - bmin, min=1e-6), 0.0, 1.0)
         feats = []
         x = vol.permute(3, 0, 1, 2)[None]  # [1, C, D, H, W]
         for lvl in range(len(self.widths)):
             x = F.relu(conv3d_same(getattr(self, f"conv_{lvl}a"), x))
             x = F.relu(conv3d_same(getattr(self, f"conv_{lvl}b"), x))
-            feats.append(trilinear_sample(x[0].permute(1, 2, 3, 0), rel))
+            feats.append(trilinear_sample(x[0].permute(1, 2, 3, 0).float(), rel))
         return torch.cat(feats, dim=-1)

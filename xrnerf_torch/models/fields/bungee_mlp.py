@@ -6,8 +6,8 @@ evaluated each call; the curriculum masks stages in the compositing and
 loss. Layers keep the flax names (``base_i``, ``alpha_s*``,
 ``bottleneck_s*``, ``views_s*``, ``rgb_s*``, ``res_{s}_{j}``,
 ``res_proj_{s}``), so a flax tree maps one to one through
-``utils/weights.py``. f32 ``nn.Linear``: the JAX field runs plain
-``nn.Dense`` and reaches no Pallas kernel.
+``utils/weights.py``. ``nn.Linear`` in ``dtype`` (f32 by default): the
+JAX field runs plain ``nn.Dense`` and reaches no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -18,10 +18,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils.dtype import Dense, resolve_dtype
 from .nerf_mlp import flax_init_
 
 
 class BungeeNerfMLP(nn.Module):
+    """``dtype`` is flax's compute dtype (the JAX field
+    ``xrnerf_tpu/models/fields/bungee_mlp.py:28``; ``utils/dtype.py``): the
+    encodings go in cast to it, raw rgb and sigma come out f32
+    (``bungee_mlp.py:67-68``)."""
+
     def __init__(
         self,
         in_ch: int = 60,
@@ -31,23 +37,25 @@ class BungeeNerfMLP(nn.Module):
         netwidth: int = 256,
         netdepth_res: int = 1,
         skips: Sequence[int] = (4,),
+        dtype=torch.float32,
     ):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.n_stages, self.netdepth_base, self.netdepth_res = n_stages, netdepth_base, netdepth_res
         self.skips = tuple(skips)
         w = netwidth
         for i in range(netdepth_base):
             skip_in = i > 0 and (i - 1) in self.skips and (i - 1) != netdepth_base - 1
-            setattr(self, f"base_{i}", nn.Linear(in_ch if i == 0 else (in_ch + w if skip_in else w), w))
+            setattr(self, f"base_{i}", Dense(in_ch if i == 0 else (in_ch + w if skip_in else w), w, dtype=self.dtype))
         for s in range(n_stages):
             if s > 0:
                 for j in range(netdepth_res):
-                    setattr(self, f"res_{s}_{j}", nn.Linear(w + in_ch if j == 0 else w, w))
-                setattr(self, f"res_proj_{s}", nn.Linear(w, w))
-            setattr(self, f"alpha_s{s}", nn.Linear(w, 1))
-            setattr(self, f"bottleneck_s{s}", nn.Linear(w, w))
-            setattr(self, f"views_s{s}", nn.Linear(w + in_ch_views, w // 2))
-            setattr(self, f"rgb_s{s}", nn.Linear(w // 2, 3))
+                    setattr(self, f"res_{s}_{j}", Dense(w + in_ch if j == 0 else w, w, dtype=self.dtype))
+                setattr(self, f"res_proj_{s}", Dense(w, w, dtype=self.dtype))
+            setattr(self, f"alpha_s{s}", Dense(w, 1, dtype=self.dtype))
+            setattr(self, f"bottleneck_s{s}", Dense(w, w, dtype=self.dtype))
+            setattr(self, f"views_s{s}", Dense(w + in_ch_views, w // 2, dtype=self.dtype))
+            setattr(self, f"rgb_s{s}", Dense(w // 2, 3, dtype=self.dtype))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         flax_init_(self, generator)
@@ -60,8 +68,8 @@ class BungeeNerfMLP(nn.Module):
 
     def forward(self, pts_enc: torch.Tensor, views_enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (raw_rgb [N, stages, 3], raw_sigma [N, stages])."""
-        x = pts_enc.float()
-        views_enc = views_enc.float()
+        x = pts_enc.to(self.dtype)
+        views_enc = views_enc.to(self.dtype)
         h = x
         for i in range(self.netdepth_base):
             h = F.relu(getattr(self, f"base_{i}")(h))
@@ -77,4 +85,4 @@ class BungeeNerfMLP(nn.Module):
             rgb, sigma = self._heads(h, views_enc, s)
             rgbs.append(rgb)
             sigmas.append(sigma)
-        return torch.stack(rgbs, dim=-2), torch.stack(sigmas, dim=-1)
+        return torch.stack(rgbs, dim=-2).float(), torch.stack(sigmas, dim=-1).float()

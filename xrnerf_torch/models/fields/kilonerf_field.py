@@ -10,7 +10,10 @@ carries them across as they are. Points go to their cell's network with
 the mixture-of-experts capacity rule (stable sort by network, rank within
 the group, drop past ``capacity``) and every layer is one ``torch.bmm``
 over ``[n_nets, capacity, in]`` in f32, as the JAX package runs its
-``dot_general`` (outside any Pallas kernel).
+``dot_general`` (outside any Pallas kernel). With ``dtype`` bf16 the inputs
+and weights of each product are cast to bf16 and the product comes out in
+f32 (``preferred_element_type=jnp.float32``), the bias added in f32
+(``bmm_f32_out``).
 
 Two dispatches select the same slots:
 
@@ -51,6 +54,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...parallel.mesh import model_group, reduce_from, rows_before
+from ...utils.dtype import resolve_dtype
 from ..embedders.posenc import posenc, posenc_channels
 
 
@@ -112,6 +116,35 @@ def moe_dispatch(net_idx: torch.Tensor, n_nets: int, capacity: int, rows=None,
     return torch.where(mine, (sorted_key - lo if lo else sorted_key) * slots + rank, (hi - lo) * slots), keep, order
 
 
+class _BmmF32Out(torch.autograd.Function):
+    """``lax.dot_general(a, b, preferred_element_type=f32)`` of bf16 batches:
+    the products exact, the sums in f32, never rounded to bf16. On the card
+    the forward is cuBLAS's bf16 GEMM with an f32 output
+    (``torch.bmm(..., out_dtype=torch.float32)``); on the CPU the same
+    function as an f32 product of the bf16 values. The backward is JAX's
+    transpose: the f32 cotangent times the other bf16 operand in f32, rounded
+    to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def bmm_f32_out(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x @ w`` batched, operands cast to ``dtype``, the product in f32."""
+    return _BmmF32Out.apply(x.to(dtype), w.to(dtype))
+
+
 def _init_layer(w: torch.Tensor, b: torch.Tensor, generator: Optional[torch.Generator]) -> None:
     """Kaiming-uniform fan-in weights (bound sqrt(6 / d_in)), zero biases."""
     bound = math.sqrt(6.0 / w.shape[1])
@@ -127,8 +160,9 @@ class _StackedMLP(nn.Module):
     feature for one more hidden layer and the rgb head."""
 
     def __init__(self, n_nets: int, hidden: int = 32, n_hidden_layers: int = 2, multires: int = 10,
-                 multires_dirs: int = 4):
+                 multires_dirs: int = 4, dtype=torch.float32):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.n_nets, self.hidden, self.n_hidden_layers = n_nets, hidden, n_hidden_layers
         self.multires, self.multires_dirs = multires, multires_dirs
         pts_ch = posenc_channels(3, multires)
@@ -147,7 +181,8 @@ class _StackedMLP(nn.Module):
             _init_layer(getattr(self, f"{name}_w"), getattr(self, f"{name}_b"), generator)
 
     def _layer(self, name: str, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
-        y = torch.baddbmm(getattr(self, f"{name}_b"), x, getattr(self, f"{name}_w"))
+        w, b = getattr(self, f"{name}_w"), getattr(self, f"{name}_b")
+        y = torch.baddbmm(b, x, w) if self.dtype == torch.float32 else bmm_f32_out(x, w, self.dtype) + b
         return F.relu(y) if relu else y
 
     def _mlp(self, h: torch.Tensor, d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -162,13 +197,16 @@ class _StackedMLP(nn.Module):
 
 
 class MultiNetworkMLP(_StackedMLP):
-    """Stacked tiny MLPs evaluated by batched products over dispatched points."""
+    """Stacked tiny MLPs evaluated by batched products over dispatched points.
+    ``dtype``: the products' operand dtype (the JAX field
+    ``xrnerf_tpu/models/fields/kilonerf_field.py:82``, used in
+    ``_bmm_layer`` ``:84-103``); outputs are f32 in every mode."""
 
     mesh = None  # set by parallel.mesh.shard_module
 
     def __init__(self, n_nets: int, hidden: int = 32, n_hidden_layers: int = 2, multires: int = 10,
-                 multires_dirs: int = 4, capacity_factor: float = 2.0):
-        super().__init__(n_nets, hidden, n_hidden_layers, multires, multires_dirs)
+                 multires_dirs: int = 4, capacity_factor: float = 2.0, dtype=torch.float32):
+        super().__init__(n_nets, hidden, n_hidden_layers, multires, multires_dirs, dtype)
         self.capacity_factor = capacity_factor
 
     def capacity(self, bsz: int) -> int:
@@ -253,7 +291,8 @@ class GroupedMultiMLP(_StackedMLP):
     """Multi-network eval over pre-grouped examples [N_nets, E, ...] (the
     distillation phase draws every network's examples in its own domain, so
     no dispatch is needed). Same leaf names as :class:`MultiNetworkMLP`, so
-    fitted weights go into the finetune field as they are."""
+    fitted weights go into the finetune field as they are. ``dtype`` as
+    there (the JAX field ``kilonerf_field.py:261``)."""
 
     def forward(self, local_pts: torch.Tensor, dirs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """local_pts [N, E, 3] in [-1, 1], dirs [N, E, 3] -> raw (rgb [N, E, 3], sigma [N, E])."""

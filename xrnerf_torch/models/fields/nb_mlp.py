@@ -4,7 +4,7 @@ head, and a colour branch over ``[feature(h), appearance code of the frame,
 posenc(view dirs, 4), posenc(points, 6)]`` (``color_fc``, ``rgb``). The
 ``appearance`` table (``nn.Embedding(num_frames, 128)``) is looked up with
 the batch's 0-d frame index on its device and broadcast over the points.
-f32 ``nn.Linear``, flax's names.
+``nn.Linear`` in ``dtype`` (f32 by default), flax's names.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils.dtype import Dense, resolve_dtype
 from ..embedders.posenc import posenc, posenc_channels
 from .nerf_mlp import flax_init_
 
@@ -26,6 +27,11 @@ def frame_code(table: nn.Embedding, frame_idx: torch.Tensor, n: int) -> torch.Te
 
 
 class NBNerfMLP(nn.Module):
+    """``dtype`` is flax's compute dtype of the ``Dense`` layers (the JAX
+    field ``xrnerf_tpu/models/fields/nb_mlp.py:27``; the appearance table is
+    f32 and its row cast to ``dtype``); raw rgb and sigma come out f32
+    (``nb_mlp.py:52``)."""
+
     def __init__(
         self,
         in_ch: int = 128,
@@ -34,17 +40,19 @@ class NBNerfMLP(nn.Module):
         hidden: int = 256,
         multires_dirs: int = 4,
         multires_pts: int = 6,
+        dtype=torch.float32,
     ):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.multires_dirs, self.multires_pts = multires_dirs, multires_pts
-        self.fc0 = nn.Linear(in_ch, hidden)
-        self.fc1 = nn.Linear(hidden, hidden)
-        self.alpha = nn.Linear(hidden, 1)
+        self.fc0 = Dense(in_ch, hidden, dtype=self.dtype)
+        self.fc1 = Dense(hidden, hidden, dtype=self.dtype)
+        self.alpha = Dense(hidden, 1, dtype=self.dtype)
         self.appearance = nn.Embedding(num_frames, appearance_dim)
-        self.feature = nn.Linear(hidden, hidden)
+        self.feature = Dense(hidden, hidden, dtype=self.dtype)
         c_in = hidden + appearance_dim + posenc_channels(3, multires_dirs) + posenc_channels(3, multires_pts)
-        self.color_fc = nn.Linear(c_in, hidden // 2)
-        self.rgb = nn.Linear(hidden // 2, 3)
+        self.color_fc = Dense(c_in, hidden // 2, dtype=self.dtype)
+        self.rgb = Dense(hidden // 2, 3, dtype=self.dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         flax_init_(self, generator)
@@ -52,10 +60,12 @@ class NBNerfMLP(nn.Module):
     def forward(self, xyzc_feat, viewdirs, pts, frame_idx) -> Tuple[torch.Tensor, torch.Tensor]:
         """xyzc_feat [P, C], viewdirs [P, 3], pts [P, 3] (normalised to the
         person box), frame_idx [] -> (raw_rgb [P, 3], raw_sigma [P])."""
-        h = F.relu(self.fc0(xyzc_feat.float()))
+        dt = self.dtype
+        h = F.relu(self.fc0(xyzc_feat))
         h = F.relu(self.fc1(h))
         sigma = self.alpha(h)[..., 0]
-        app = frame_code(self.appearance, frame_idx, h.shape[0])
-        c = torch.cat([self.feature(h), app, posenc(viewdirs, self.multires_dirs), posenc(pts, self.multires_pts)], -1)
+        app = frame_code(self.appearance, frame_idx, h.shape[0]).to(dt)
+        venc, penc = posenc(viewdirs, self.multires_dirs).to(dt), posenc(pts, self.multires_pts).to(dt)
+        c = torch.cat([self.feature(h), app, venc, penc], -1)
         rgb = self.rgb(F.relu(self.color_fc(c)))
-        return rgb, sigma
+        return rgb.float(), sigma.float()

@@ -6,8 +6,8 @@ names match the flax tree (``pts_0..7``, ``alpha``, ``feature``,
 ``views_0``, ``rgb``; ``output`` without view dirs), so a flax checkpoint
 maps one-to-one through ``utils/weights.py``.
 
-``fused=False`` runs ``nn.Linear`` in f32. ``fused=True`` needs the
-reference topology (netdepth 8, skip at 4, view dirs) and routes the whole
+``fused=False`` runs ``nn.Linear`` in ``dtype`` (see the class).
+``fused=True`` needs the reference topology (netdepth 8, skip at 4, view dirs) and routes the whole
 MLP through ``ops/fused_nerf_mlp.py`` (the CUDA kernels on the card, their
 plain versions on the CPU). When a parameter needs a gradient it packs the
 live parameters each call and runs the autograd op (forward and backward
@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.fused_nerf_mlp import fused_nerf_mlp, fused_nerf_mlp_fwd, pack_params
+from ...utils.dtype import Dense, resolve_dtype
 
 # flax lecun_normal: truncated normal on [-2, 2] std, rescaled so the
 # variance is 1/fan_in (jax.nn.initializers.variance_scaling).
@@ -63,6 +64,12 @@ def flax_init_(module: nn.Module, generator: Optional[torch.Generator]) -> None:
 
 
 class NerfMLP(nn.Module):
+    """``dtype`` is flax's compute dtype (the JAX field
+    ``xrnerf_tpu/models/fields/nerf_mlp.py:27``, used at ``:79-96``; f32 by
+    default, a name or a ``torch.dtype``, ``utils/dtype.py``): the encodings
+    go in cast to ``dtype`` and raw rgb and sigma come out f32. ``fused=True``
+    ignores it, as in JAX."""
+
     def __init__(
         self,
         in_ch: int = 63,
@@ -72,8 +79,10 @@ class NerfMLP(nn.Module):
         skips: Sequence[int] = (4,),
         use_viewdirs: bool = True,
         fused: bool = False,
+        dtype=torch.float32,
     ):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.netdepth, self.netwidth = netdepth, netwidth
         self.skips = tuple(skips)
         self.use_viewdirs = use_viewdirs
@@ -87,14 +96,14 @@ class NerfMLP(nn.Module):
         for i in range(netdepth):
             skip_in = i > 0 and (i - 1) in self.skips and (i - 1) != netdepth - 1
             din = in_ch if i == 0 else (in_ch + w if skip_in else w)
-            setattr(self, f"pts_{i}", nn.Linear(din, w))
+            setattr(self, f"pts_{i}", Dense(din, w, dtype=self.dtype))
         if use_viewdirs:
-            self.alpha = nn.Linear(w, 1)
-            self.feature = nn.Linear(w, w)
-            self.views_0 = nn.Linear(w + in_ch_views, w // 2)
-            self.rgb = nn.Linear(w // 2, 3)
+            self.alpha = Dense(w, 1, dtype=self.dtype)
+            self.feature = Dense(w, w, dtype=self.dtype)
+            self.views_0 = Dense(w + in_ch_views, w // 2, dtype=self.dtype)
+            self.rgb = Dense(w // 2, 3, dtype=self.dtype)
         else:
-            self.output = nn.Linear(w, 4)
+            self.output = Dense(w, 4, dtype=self.dtype)
         self._pack_key = None
         self._pack = None
 
@@ -126,7 +135,8 @@ class NerfMLP(nn.Module):
             else:
                 rgb, sigma = fused_nerf_mlp_fwd(x, v, self.packed())
             return rgb.reshape(*lead, 3), sigma.reshape(lead)
-        x = pts_enc.float()
+        dt = self.dtype
+        x = pts_enc.to(dt)
         h = x
         for i in range(self.netdepth):
             h = F.relu(getattr(self, f"pts_{i}")(h))
@@ -135,9 +145,9 @@ class NerfMLP(nn.Module):
         if self.use_viewdirs:
             sigma = self.alpha(h)[..., 0]
             feat = self.feature(h)
-            v = F.relu(self.views_0(torch.cat([feat, views_enc.float()], dim=-1)))
+            v = F.relu(self.views_0(torch.cat([feat, views_enc.to(dt)], dim=-1)))
             rgb = self.rgb(v)
         else:
             out = self.output(h)
             rgb, sigma = out[..., :3], out[..., 3]
-        return rgb, sigma
+        return rgb.float(), sigma.float()

@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from ...ops.fused_mlp import fused_mlp2, fused_mlp3
+from ...utils.dtype import resolve_dtype
 from ..embedders.hashenc import BrickHashEncoding, HashEncoding
 from ..embedders.sh import sh_encode
 from .nerf_mlp import _TRUNC_STD, lecun_normal_
@@ -53,7 +54,7 @@ class NGPField(nn.Module):
     ):
         super().__init__()
         self.geo_feat_dim, self.sh_degree = geo_feat_dim, sh_degree
-        self.fused, self.dtype = fused, dtype
+        self.fused, self.dtype = fused, resolve_dtype(dtype)
         enc_kw = dict(n_levels=n_levels, n_features=n_features, log2_table_size=log2_table_size,
                       base_res=base_res, max_res=max_res, dtype=dtype)
         if hash_layout == "brick":

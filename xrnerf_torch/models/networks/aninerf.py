@@ -15,8 +15,9 @@ only that field trains. All four fields are built in either phase, so a
 ``train_pose`` state dict loads into a ``novel_pose`` network.
 
 The batch's context: ``ctx_verts``, ``ctx_A`` [J, 4, 4], ``ctx_bw_verts``
-[V, J], ``ctx_frame_idx``. f32 ``nn.Linear`` with flax's names: the JAX
-fields are plain ``nn.Dense`` and reach no Pallas kernel.
+[V, J], ``ctx_frame_idx``. ``nn.Linear`` in ``dtype`` (f32 by default)
+with flax's names: the JAX fields are plain ``nn.Dense`` and reach no Pallas
+kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 
 from ...parallel.mesh import reduce_from
 from ...registry import NETWORKS
+from ...utils.dtype import Dense, resolve_dtype
 from ...utils.metrics import img2mse, mse2psnr
 from ..embedders.posenc import posenc, posenc_channels
 from ..fields.nb_mlp import frame_code
@@ -40,55 +42,68 @@ from .utils.lbs import pose_to_tpose, sample_blend_weights
 
 class BlendWeightMLP(nn.Module):
     """Residual blend-weight field: posed points and the frame's latent code
-    -> J logits; the blend weights are ``normalize(smpl_bw * exp(logits))``."""
+    -> J logits; the blend weights are ``normalize(smpl_bw * exp(logits))``.
+    ``dtype``: the ``Dense`` layers' compute dtype (the JAX field
+    ``xrnerf_tpu/models/networks/aninerf.py:45``); the logits come out f32."""
 
     def __init__(self, n_joints: int = 24, num_frames: int = 1000, latent_dim: int = 128, hidden: int = 256,
-                 depth: int = 4, multires: int = 6):
+                 depth: int = 4, multires: int = 6, dtype=torch.float32):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.depth, self.multires = depth, multires
         self.latent = nn.Embedding(num_frames, latent_dim)
         din = posenc_channels(3, multires) + latent_dim
         for i in range(depth):
-            setattr(self, f"fc{i}", nn.Linear(din if i == 0 else hidden, hidden))
-        self.bw_out = nn.Linear(hidden, n_joints)
+            setattr(self, f"fc{i}", Dense(din if i == 0 else hidden, hidden, dtype=self.dtype))
+        self.bw_out = Dense(hidden, n_joints, dtype=self.dtype)
 
     def forward(self, pts, smpl_bw, frame_idx):
         latent = frame_code(self.latent, frame_idx, pts.shape[0])
-        h = torch.cat([posenc(pts, self.multires), latent], -1)
+        h = torch.cat([posenc(pts, self.multires), latent], -1).to(self.dtype)
         for i in range(self.depth):
             h = F.relu(getattr(self, f"fc{i}")(h))
-        bw = smpl_bw * torch.exp(self.bw_out(h))
+        bw = smpl_bw * torch.exp(self.bw_out(h).float())
         return bw / torch.clamp(torch.sum(bw, -1, keepdim=True), min=1e-8)
 
 
 class TPoseHuman(nn.Module):
-    """Canonical-space density and colour fields."""
+    """Canonical-space density and colour fields. ``dtype``: the ``Dense``
+    layers' compute dtype (the JAX field ``aninerf.py:73``); raw rgb and
+    sigma come out f32."""
 
     def __init__(self, num_frames: int = 1000, color_latent_dim: int = 128, hidden: int = 256, depth: int = 4,
-                 multires: int = 6):
+                 multires: int = 6, dtype=torch.float32):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.depth, self.multires = depth, multires
         for i in range(depth):
-            setattr(self, f"density_fc{i}", nn.Linear(posenc_channels(3, multires) if i == 0 else hidden, hidden))
-        self.density_out = nn.Linear(hidden, 1)
-        self.feature = nn.Linear(hidden, hidden)
+            din = posenc_channels(3, multires) if i == 0 else hidden
+            setattr(self, f"density_fc{i}", Dense(din, hidden, dtype=self.dtype))
+        self.density_out = Dense(hidden, 1, dtype=self.dtype)
+        self.feature = Dense(hidden, hidden, dtype=self.dtype)
         self.color_latent = nn.Embedding(num_frames, color_latent_dim)
-        self.color_fc = nn.Linear(hidden + color_latent_dim + posenc_channels(3, 4), hidden // 2)
-        self.rgb = nn.Linear(hidden // 2, 3)
+        self.color_fc = Dense(hidden + color_latent_dim + posenc_channels(3, 4), hidden // 2, dtype=self.dtype)
+        self.rgb = Dense(hidden // 2, 3, dtype=self.dtype)
 
     def forward(self, tpts, viewdirs, frame_idx):
-        h = posenc(tpts, self.multires)
+        dt = self.dtype
+        h = posenc(tpts, self.multires).to(dt)
         for i in range(self.depth):
             h = F.relu(getattr(self, f"density_fc{i}")(h))
         sigma = self.density_out(h)[..., 0]
         latent = frame_code(self.color_latent, frame_idx, tpts.shape[0])
-        c = torch.cat([self.feature(h), latent, posenc(viewdirs, 4)], -1)
+        # the f32 latent promotes the row to f32, as jnp.concatenate does; color_fc casts it back
+        c = torch.cat([self.feature(h), latent, posenc(viewdirs, 4).to(dt)], -1)
         rgb = self.rgb(F.relu(self.color_fc(c)))
-        return rgb, sigma
+        return rgb.float(), sigma.float()
 
 
 @NETWORKS.register
 class AniNeRFNetwork(nn.Module):
+    """``dtype``: the four fields' compute dtype (the JAX field
+    ``xrnerf_tpu/models/networks/aninerf.py:104``, passed on at
+    ``:108-117``)."""
+
     def __init__(
         self,
         n_joints: int = 24,
@@ -99,16 +114,17 @@ class AniNeRFNetwork(nn.Module):
         bw_consistency_weight: float = 1.0,
         phase: str = "train_pose",  # or "novel_pose"
         white_bkgd: bool = False,
+        dtype=torch.float32,
     ):
         super().__init__()
         if phase not in ("train_pose", "novel_pose"):
             raise ValueError(f"unknown AniNeRF phase {phase!r}")
         self.n_samples, self.smpl_dist_threshold = n_samples, smpl_dist_threshold
         self.bw_consistency_weight, self.phase, self.white_bkgd = bw_consistency_weight, phase, white_bkgd
-        self.pose_bw_mlp = BlendWeightMLP(n_joints=n_joints, num_frames=num_frames)
-        self.novel_pose_bw_mlp = BlendWeightMLP(n_joints=n_joints, num_frames=num_frames)
-        self.tpose_bw_mlp = BlendWeightMLP(n_joints=n_joints, num_frames=1)
-        self.tpose_human = TPoseHuman(num_frames=num_frames, hidden=hidden)
+        self.pose_bw_mlp = BlendWeightMLP(n_joints=n_joints, num_frames=num_frames, dtype=dtype)
+        self.novel_pose_bw_mlp = BlendWeightMLP(n_joints=n_joints, num_frames=num_frames, dtype=dtype)
+        self.tpose_bw_mlp = BlendWeightMLP(n_joints=n_joints, num_frames=1, dtype=dtype)
+        self.tpose_human = TPoseHuman(num_frames=num_frames, hidden=hidden, dtype=dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """flax's ``Dense`` and ``Embed`` initialisations."""

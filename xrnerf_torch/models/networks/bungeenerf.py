@@ -51,6 +51,10 @@ def _stage_composite(raw_rgb, raw_sigma, stage_mask, t_vals, rays_d, white_bkgd:
 
 @NETWORKS.register
 class BungeeNerfNetwork(nn.Module):
+    """``dtype``: the MLP's compute dtype (the JAX field
+    ``xrnerf_tpu/models/networks/bungeenerf.py:83``, passed on at ``:87``;
+    ``fields/bungee_mlp.py:BungeeNerfMLP``)."""
+
     def __init__(
         self,
         n_stages: int = 4,
@@ -63,6 +67,7 @@ class BungeeNerfNetwork(nn.Module):
         white_bkgd: bool = False,
         iters_per_stage: int = 50000,
         coarse_loss_mult: float = 1.0,
+        dtype=torch.float32,
     ):
         super().__init__()
         self.n_stages, self.n_samples, self.n_resample = n_stages, n_samples, n_resample
@@ -70,7 +75,7 @@ class BungeeNerfNetwork(nn.Module):
         self.white_bkgd, self.iters_per_stage, self.coarse_loss_mult = white_bkgd, iters_per_stage, coarse_loss_mult
         self.mlp = BungeeNerfMLP(
             in_ch=6 * (max_deg_point - min_deg_point), in_ch_views=3 + 6 * deg_view,
-            n_stages=n_stages, netwidth=netwidth,
+            n_stages=n_stages, netwidth=netwidth, dtype=dtype,
         )
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

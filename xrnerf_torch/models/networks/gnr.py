@@ -24,6 +24,10 @@ too, as the JAX network does.
   under ``torch.inference_mode()``. ``train=True`` without a generator is
   the deterministic path with gradients.
 - The SMPL queries (``ops/mesh.py``) take no part in autograd.
+- ``dtype`` (f32 by default) is the encoders' and the MLP's compute dtype;
+  the features are sampled in f32 from the encoder's ``dtype`` values, as
+  JAX's bilinear taps promote them; the SMPL queries, sampling and
+  compositing stay f32.
 """
 
 from __future__ import annotations
@@ -51,6 +55,10 @@ from ..renders.gnr_render import (
 
 @NETWORKS.register
 class GnrNetwork(nn.Module):
+    """``dtype``: the JAX field ``xrnerf_tpu/models/networks/gnr.py:71``,
+    passed on to ``HGFilter`` (``:78``), ``SRFilters`` (``:82``) and
+    ``GNRMLP`` (``:93``)."""
+
     def __init__(
         self,
         num_views: int = 4,
@@ -77,6 +85,7 @@ class GnrNetwork(nn.Module):
         mlp_width: int = 256,
         skips: Any = (2, 4, 6),
         mesh_chunk: int = 2048,
+        dtype=torch.float32,
     ):
         super().__init__()
         self.num_views, self.n_samples, self.load_size = num_views, n_samples, load_size
@@ -85,13 +94,15 @@ class GnrNetwork(nn.Module):
         self.use_nml, self.use_attention, self.use_occlusion = use_nml, use_attention, use_occlusion
         self.use_vh, self.vh_compact_frac, self.use_white_bkgd = use_vh, vh_compact_frac, use_white_bkgd
         self.train_encoder, self.mesh_chunk = train_encoder, mesh_chunk
-        self.image_filter = HGFilter(num_stack=num_stack, num_hourglass=num_hourglass, hourglass_dim=hourglass_dim)
+        self.image_filter = HGFilter(num_stack=num_stack, num_hourglass=num_hourglass, hourglass_dim=hourglass_dim,
+                                     dtype=dtype)
         feat_dim = 64 if use_feat_sr else hourglass_dim
         if use_feat_sr:
-            self.sr_filter = SRFilters(order=2, out_ch=feat_dim, in_ch=hourglass_dim)
+            self.sr_filter = SRFilters(order=2, out_ch=feat_dim, in_ch=hourglass_dim, dtype=dtype)
         self.nerf = GNRMLP(depth=mlp_depth, width=mlp_width, skips=tuple(skips), num_views=num_views,
                            use_smpl_sdf=use_smpl_sdf, use_t_pose=use_t_pose, use_attention=use_attention,
-                           use_viewdirs=use_viewdirs, use_occlusion_net=use_occlusion_net, feat_dim=feat_dim + 3)
+                           use_viewdirs=use_viewdirs, use_occlusion_net=use_occlusion_net, feat_dim=feat_dim + 3,
+                           dtype=dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.image_filter.reset_parameters(generator)
@@ -195,7 +206,7 @@ class GnrNetwork(nn.Module):
 
         # pixel-aligned multi-view features and source rgb
         uv = self._project_uv(flat, src_calibs, src_persps)
-        latent = index_views(feats, uv)  # [V, P, F]
+        latent = index_views(feats.float(), uv)  # [V, P, F]
         src_rgb = index_views(src_images, uv)  # [V, P, 3]
         view_feats = torch.cat([latent, src_rgb], -1).transpose(0, 1)
 

@@ -289,7 +289,10 @@ def kilonerf_strip_active(rays_o, rays_d, near, far, dist, domain_min, domain_ma
 
 @NETWORKS.register
 class KiloNerfNetwork(nn.Module):
-    """Finetune/inference network over a fixed grid of tiny MLPs."""
+    """Finetune/inference network over a fixed grid of tiny MLPs. ``dtype``:
+    the field's product dtype (the JAX field
+    ``xrnerf_tpu/models/networks/kilonerf.py:488``, passed on at ``:503``;
+    ``fields/kilonerf_field.py:MultiNetworkMLP``)."""
 
     def __init__(
         self,
@@ -311,6 +314,7 @@ class KiloNerfNetwork(nn.Module):
         white_bkgd: bool = True,
         view_dep_reg: float = 1e-6,
         occupancy_path: str = "",
+        dtype=torch.float32,
     ):
         super().__init__()
         self.resolution = tuple(int(r) for r in resolution)
@@ -323,7 +327,7 @@ class KiloNerfNetwork(nn.Module):
         self.eval_budget, self.white_bkgd = eval_budget, white_bkgd
         self.view_dep_reg, self.occupancy_path = view_dep_reg, occupancy_path
         self.mlp = MultiNetworkMLP(int(np.prod(self.resolution)), hidden, n_hidden_layers, multires, multires_dirs,
-                                   capacity_factor)
+                                   capacity_factor, dtype)
         # the occupancy grid (JAX: the trainer's aux), and what the marches derive from it
         self.register_buffer("occupancy", None)
         for name in ("occ_dist", "dil_packed", "occ_packed"):
@@ -472,7 +476,9 @@ class KiloNerfNetwork(nn.Module):
 @NETWORKS.register
 class StudentNerfNetwork(nn.Module):
     """Distillation student: the multi-network field fitted to teacher point
-    samples (the teacher lives in the dataset, which precomputes targets)."""
+    samples (the teacher lives in the dataset, which precomputes targets).
+    ``dtype`` as in :class:`KiloNerfNetwork` (the JAX field
+    ``kilonerf.py:722``)."""
 
     def __init__(
         self,
@@ -485,6 +491,7 @@ class StudentNerfNetwork(nn.Module):
         multires_dirs: int = 4,
         capacity_factor: float = 4.0,
         sigma_loss_weight: float = 0.1,
+        dtype=torch.float32,
     ):
         super().__init__()
         self.resolution = tuple(int(r) for r in resolution)
@@ -494,7 +501,7 @@ class StudentNerfNetwork(nn.Module):
         self.register_buffer("domain_hi", torch.tensor(self.domain_max, dtype=torch.float32), persistent=False)
         self.sigma_loss_weight = sigma_loss_weight
         self.mlp = MultiNetworkMLP(int(np.prod(self.resolution)), hidden, n_hidden_layers, multires, multires_dirs,
-                                   capacity_factor)
+                                   capacity_factor, dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.mlp.reset_parameters(generator)

@@ -31,6 +31,10 @@ from ..renders.volume import mip_volume_render
 
 @NETWORKS.register
 class MipNerfNetwork(nn.Module):
+    """``dtype``: the shared MLP's compute dtype (the JAX field
+    ``xrnerf_tpu/models/networks/mipnerf.py:48``, passed on at ``:56``;
+    ``fields/nerf_mlp.py:NerfMLP``)."""
+
     def __init__(
         self,
         num_levels: int = 2,
@@ -50,6 +54,7 @@ class MipNerfNetwork(nn.Module):
         density_bias: float = -1.0,
         density_noise: float = 0.0,
         coarse_loss_mult: float = 0.1,
+        dtype=torch.float32,
     ):
         super().__init__()
         self.num_levels, self.n_samples = num_levels, n_samples
@@ -66,6 +71,7 @@ class MipNerfNetwork(nn.Module):
             netdepth=netdepth,
             netwidth=netwidth,
             use_viewdirs=use_viewdirs,
+            dtype=dtype,
         )
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

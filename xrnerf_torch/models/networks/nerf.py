@@ -27,6 +27,10 @@ from ..samplers.stratified import sample_along_rays, z_to_pts
 
 @NETWORKS.register
 class NerfNetwork(nn.Module):
+    """``dtype``: the compute dtype of both MLPs (the JAX field
+    ``xrnerf_tpu/models/networks/nerf.py:45``, passed on at ``:70`` and
+    ``:78``; ``fields/nerf_mlp.py:NerfMLP``). ``fused=True`` ignores it."""
+
     def __init__(
         self,
         n_samples: int = 64,
@@ -42,6 +46,7 @@ class NerfNetwork(nn.Module):
         perturb: bool = True,
         coarse_loss_weight: float = 1.0,
         fused: bool = False,
+        dtype=torch.float32,
     ):
         super().__init__()
         self.n_samples, self.n_importance = n_samples, n_importance
@@ -62,6 +67,7 @@ class NerfNetwork(nn.Module):
             netwidth=netwidth,
             use_viewdirs=use_viewdirs,
             fused=fused,
+            dtype=dtype,
         )
         self.mlp_coarse = NerfMLP(**mlp_kw)
         if n_importance > 0:

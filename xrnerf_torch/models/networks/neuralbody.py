@@ -30,6 +30,10 @@ from ..samplers.stratified import sample_along_rays, z_to_pts
 
 @NETWORKS.register
 class NeuralBodyNetwork(nn.Module):
+    """``dtype``: the embedder's and the head's compute dtype (the JAX field
+    ``xrnerf_tpu/models/networks/neuralbody.py:38``, passed on at ``:46`` and
+    ``:52``)."""
+
     def __init__(
         self,
         n_verts: int = 6890,
@@ -41,12 +45,14 @@ class NeuralBodyNetwork(nn.Module):
         hidden: int = 256,
         n_samples: int = 64,
         white_bkgd: bool = False,
+        dtype=torch.float32,
     ):
         super().__init__()
         self.n_samples, self.white_bkgd = n_samples, white_bkgd
-        self.embedder = SmplEmbedder(n_verts=n_verts, code_dim=code_dim, grid_dims=grid_dims, widths=conv_widths)
+        self.embedder = SmplEmbedder(n_verts=n_verts, code_dim=code_dim, grid_dims=grid_dims, widths=conv_widths,
+                                     dtype=dtype)
         self.mlp = NBNerfMLP(in_ch=sum(conv_widths), num_frames=num_frames, appearance_dim=appearance_dim,
-                             hidden=hidden)
+                             hidden=hidden, dtype=dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.embedder.reset_parameters(generator)

@@ -12,6 +12,8 @@ itself calls it first.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -37,10 +39,26 @@ def configure_card() -> None:
     (``tools/torch_conv_probe.py``). torch keeps a shape's plan however it
     was chosen, so this comes before any convolution runs. With the search
     on, two runs from one seed may pick different conv algorithms and differ
-    in the last bits."""
+    in the last bits. bf16 and fp16 products sum in f32 (flax's ``dtype``
+    contract: bf16 operands, f32 accumulation), where cuBLAS's split-K
+    kernels would otherwise be allowed to reduce their partial sums in
+    the operands' precision."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+
+
+def card_line(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
+    first card), or ``cpu`` for a CPU device: the line a measuring tool
+    prints before its numbers."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def warm_cpu_math() -> None:
