@@ -13,6 +13,8 @@ import queue
 import threading
 from typing import Callable, Optional
 
+from ..utils.spans import span
+
 
 class BatchPrefetcher:
     def __init__(
@@ -49,7 +51,8 @@ class BatchPrefetcher:
 
     def get(self, step: int) -> dict:
         """Batch for ``step`` (steps must be consumed in order)."""
-        got_step, item = self._q.get()
+        with span("xrnerf_torch.prefetch.wait"):
+            got_step, item = self._q.get()
         if got_step is None:  # the worker died: raise its exception here
             raise self._exc
         if got_step != step:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh as pm
+from ..utils.spans import span
 
 
 # A culled ray's fill per output: 1.0 rgb, 1e10 disp (an empty ray's 1 / 1e-10), 0 otherwise.
@@ -55,16 +56,23 @@ def render_rays_chunked(
     Under a mesh the prepass runs on each rank's chunks, so ``active_fn``
     must give a chunk's rays the mask it gives them in the whole (the strip
     cull does for a chunk that is a multiple of its strip)."""
+    with span("xrnerf_torch.render.image"):
+        return _render_rays_chunked(model, rays, chunk, keys, active_fn, mesh)
+
+
+def _render_rays_chunked(model, rays, chunk, keys, active_fn, mesh) -> Dict[str, np.ndarray]:
     device = next(model.parameters()).device
-    ctx = {k: torch.from_numpy(np.require(v, requirements="C")).to(device)
-           for k, v in rays.items() if k.startswith("ctx_") or np.ndim(v) == 0}
-    ray_keys = {k: v for k, v in rays.items() if k not in ctx and k != "target"}
-    n = next(iter(ray_keys.values())).shape[0]
-    padded = pm.pad_to_multiple(ray_keys, chunk)
-    total = next(iter(padded.values())).shape[0]
+    with span("xrnerf_torch.render.pad"):
+        ctx = {k: torch.from_numpy(np.require(v, requirements="C")).to(device)
+               for k, v in rays.items() if k.startswith("ctx_") or np.ndim(v) == 0}
+        ray_keys = {k: v for k, v in rays.items() if k not in ctx and k != "target"}
+        n = next(iter(ray_keys.values())).shape[0]
+        padded = pm.pad_to_multiple(ray_keys, chunk)
+        total = next(iter(padded.values())).shape[0]
 
     def rays_of(part) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v[part])).to(device) for k, v in padded.items()}
+        with span("xrnerf_torch.render.h2d"):
+            return {k: torch.from_numpy(np.ascontiguousarray(v[part])).to(device) for k, v in padded.items()}
 
     def run(parts) -> Dict[str, list]:
         """Render each chunk's rays (a slice or an index array of ``chunk`` rays)."""
@@ -80,22 +88,26 @@ def render_rays_chunked(
         if idx.size < total:  # something culled: compact the active rays, fill the rest
             if idx.size == 0:
                 probe = run([slice(0, chunk)])
-                return {k: np.full((n, *v[0].shape[1:]), BACKGROUND.get(k, 0.0), v[0].cpu().numpy().dtype)
-                        for k, v in probe.items() if v}
+                with span("xrnerf_torch.render.d2h"):
+                    return {k: np.full((n, *v[0].shape[1:]), BACKGROUND.get(k, 0.0), v[0].cpu().numpy().dtype)
+                            for k, v in probe.items() if v}
             sel_pad = (-idx.size) % chunk
             idxp = np.concatenate([idx, np.full(sel_pad, idx[0], np.int64)]) if sel_pad else idx
+            outs = run(np.split(idxp, idxp.size // chunk))
             result = {}
-            for k, v in run(np.split(idxp, idxp.size // chunk)).items():
-                if not v:
-                    continue
-                flat = torch.cat(v, dim=0)[: idx.size].cpu().numpy()
-                out = np.full((total, *flat.shape[1:]), BACKGROUND.get(k, 0.0), flat.dtype)
-                out[idx] = flat
-                result[k] = out[:n]
+            with span("xrnerf_torch.render.d2h"):
+                for k, v in outs.items():
+                    if not v:
+                        continue
+                    flat = torch.cat(v, dim=0)[: idx.size].cpu().numpy()
+                    out = np.full((total, *flat.shape[1:]), BACKGROUND.get(k, 0.0), flat.dtype)
+                    out[idx] = flat
+                    result[k] = out[:n]
             return result
 
     outs = run([slice(start, start + chunk) for start in range(0, total, chunk)])
-    return {k: torch.cat(v, dim=0)[:n].cpu().numpy() for k, v in outs.items() if v}
+    with span("xrnerf_torch.render.d2h"):
+        return {k: torch.cat(v, dim=0)[:n].cpu().numpy() for k, v in outs.items() if v}
 
 
 def _spread(mesh: Optional[pm.Mesh], parts: list, fn: Callable, keys) -> Dict[str, list]:

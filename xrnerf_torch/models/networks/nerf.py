@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ...registry import NETWORKS
 from ...utils.metrics import img2mse, mse2psnr
+from ...utils.spans import span
 from ..embedders.posenc import posenc, posenc_channels, posenc_fast
 from ..fields.nerf_mlp import NerfMLP
 from ..renders.volume import volume_render
@@ -84,14 +85,16 @@ class NerfNetwork(nn.Module):
         # The fused path consumes encodings in bf16, where posenc_fast's
         # ~1e-3 error is invisible.
         enc = posenc_fast if self.fused else posenc
-        pts_enc = enc(pts.reshape(n * s, 3), self.multires)
-        views_enc = None
-        if self.use_viewdirs:
-            # each ray's encoding for its s samples; expand + reshape, since
-            # repeat_interleave sizes its output with a device-to-host sync
-            views_enc = enc(viewdirs, self.multires_dirs)
-            views_enc = views_enc[:, None].expand(n, s, views_enc.shape[-1]).reshape(n * s, -1)
-        rgb, sigma = mlp(pts_enc, views_enc)
+        with span("xrnerf_torch.nerf.encode"):
+            pts_enc = enc(pts.reshape(n * s, 3), self.multires)
+            views_enc = None
+            if self.use_viewdirs:
+                # each ray's encoding for its s samples; expand + reshape, since
+                # repeat_interleave sizes its output with a device-to-host sync
+                views_enc = enc(viewdirs, self.multires_dirs)
+                views_enc = views_enc[:, None].expand(n, s, views_enc.shape[-1]).reshape(n * s, -1)
+        with span("xrnerf_torch.nerf.mlp"):
+            rgb, sigma = mlp(pts_enc, views_enc)
         return rgb.reshape(n, s, 3), sigma.reshape(n, s)
 
     def forward(
@@ -108,40 +111,43 @@ class NerfNetwork(nn.Module):
     def _forward(self, batch, generator, train: bool) -> Dict[str, torch.Tensor]:
         rays_o, rays_d = batch["rays_o"], batch["rays_d"]
         near, far = batch["near"], batch["far"]
-        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-
         perturb = self.perturb and train
-        z_vals = sample_along_rays(
-            near, far, self.n_samples, lindisp=self.lindisp, perturb=perturb,
-            generator=generator if perturb else None,
-        )
-        pts = z_to_pts(rays_o, rays_d, z_vals)
+        with span("xrnerf_torch.nerf.sample"):
+            viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+            z_vals = sample_along_rays(
+                near, far, self.n_samples, lindisp=self.lindisp, perturb=perturb,
+                generator=generator if perturb else None,
+            )
+            pts = z_to_pts(rays_o, rays_d, z_vals)
         rgb_c, sigma_c = self._eval_mlp(self.mlp_coarse, pts, viewdirs)
         noise = self.raw_noise_std if train else 0.0
-        ret_c = volume_render(
-            rgb_c, sigma_c, z_vals, rays_d,
-            generator=generator if train else None,
-            raw_noise_std=noise, white_bkgd=self.white_bkgd,
-        )
+        with span("xrnerf_torch.nerf.composite"):
+            ret_c = volume_render(
+                rgb_c, sigma_c, z_vals, rays_d,
+                generator=generator if train else None,
+                raw_noise_std=noise, white_bkgd=self.white_bkgd,
+            )
         out = {
             "coarse_rgb": ret_c["rgb"],
             "coarse_disp": ret_c["disp"],
             "coarse_acc": ret_c["acc"],
         }
         if self.n_importance > 0:
-            z_mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-            z_samples = sample_pdf(
-                z_mids, ret_c["weights"][..., 1:-1], self.n_importance,
-                det=not perturb, generator=generator if perturb else None,
-            )
-            z_all, _ = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1)
-            pts_f = z_to_pts(rays_o, rays_d, z_all)
+            with span("xrnerf_torch.nerf.sample"):
+                z_mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+                z_samples = sample_pdf(
+                    z_mids, ret_c["weights"][..., 1:-1], self.n_importance,
+                    det=not perturb, generator=generator if perturb else None,
+                )
+                z_all, _ = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1)
+                pts_f = z_to_pts(rays_o, rays_d, z_all)
             rgb_f, sigma_f = self._eval_mlp(self.mlp_fine, pts_f, viewdirs)
-            ret = volume_render(
-                rgb_f, sigma_f, z_all, rays_d,
-                generator=generator if train else None,
-                raw_noise_std=noise, white_bkgd=self.white_bkgd,
-            )
+            with span("xrnerf_torch.nerf.composite"):
+                ret = volume_render(
+                    rgb_f, sigma_f, z_all, rays_d,
+                    generator=generator if train else None,
+                    raw_noise_std=noise, white_bkgd=self.white_bkgd,
+                )
         else:
             ret = ret_c
         out.update(rgb=ret["rgb"], disp=ret["disp"], acc=ret["acc"], depth=ret["depth"])
