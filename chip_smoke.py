@@ -11,7 +11,7 @@ Phases, each printed as one JSON line:
              again at the end.
 2. build   - the CUDA kernels ``xrnerf_torch/csrc/fused_nerf_mlp_fwd.cu``,
              ``fused_nerf_mlp_bwd.cu``, ``fused_mlp_fwd.cu``,
-             ``fused_mlp_bwd.cu`` and ``scatter_rows.cu``, one nvcc each,
+             ``fused_mlp_bwd.cu``, ``scatter_rows.cu`` and ``nerf_posenc.cu``, one nvcc each,
              started together; ptxas registers and spills; the dynamic
              shared memory of each ``wgmma`` kernel (the two vanilla-NeRF
              kernels, the colour net's forward, the tiny-MLP backwards).
@@ -25,11 +25,16 @@ Phases, each printed as one JSON line:
              width (8x256, 64+128 samples, posenc 10/4) with ``fused=True``
              and seeded weights renders an 800x800 novel view through
              ``Trainer.render_image`` at ``eval_chunk`` 16384: one warm-up
-             frame and two timed frames, 80 kernel launches per frame,
+             frame and two timed frames, 80 launches of row 1 and 80 of
+             row 8 (the encodings, ``nerf_posenc``) per frame,
              finite outputs, and a 32x32 crop re-rendered on the CPU (plain
              version) must agree at >= 40 dB PSNR.
    A further frame under torch.profiler gives device time by kernel and
-   the device's idle share (``profile`` line).
+   the device's idle share (``profile`` line). Then ``kernel`` lines of
+   row 8 against its plain version at ``POSENC_SHAPES`` (the same bits;
+   ms, byte bound, the plain version's ms and launches) and the
+   ``posenc_network`` line: one chunk of the frame and the KiloNeRF
+   teacher's ``eval_field`` give the same bits with either encoding.
 5. bwd_kernel - ``fused_nerf_mlp_bwd`` against its plain version at width
              256 with seeded weights, N = 1000, 262,144 (one coarse train
              launch) and 786,432 (one fine launch): per leaf (dx, dv, every
@@ -43,8 +48,8 @@ Phases, each printed as one JSON line:
              perturb, Adam lr 5e-4 with decay, ``N_rand`` 4096) for 40 steps
              on the lego camera over an analytic scene (a coloured sphere
              over white), logging every 10 steps and checkpointing at the
-             end: finite losses, last window below the first, 2 forward and
-             2 backward launches per step, ms/step, rays/s, MLP TFLOP/s, and
+             end: finite losses, last window below the first, 2 forward,
+             2 backward and 2 row-8 launches per step, ms/step, rays/s, MLP TFLOP/s, and
              the host time of one batch (pixels drawn without replacement);
              then ``resume_from`` the checkpoint runs to step 42. A further
              step under torch.profiler (``train_profile`` line).
@@ -745,12 +750,89 @@ def bwd_kernel_phase(dev, packed, gen, rows=BWD_ROWS):
     return out
 
 
+# (rays, samples a ray) of row 8's checks: a render chunk's coarse and fine passes (also the benchmark's training
+# step), chip_smoke's training step, the KiloNeRF teacher's S = 1, a ragged ray count
+POSENC_SHAPES = ((16_384, 64), (16_384, 192), (4_096, 64), (4_096, 192), (65_536, 1), (37, 192))
+POSENC_TEACHER_POINTS = 65_536
+
+
+def posenc_kernel_phase(dev, net, rays, chunk):
+    """Row 8 (``nerf_posenc``) against its plain version on the card, bit for
+    bit, at ``POSENC_SHAPES``: ms (CUDA events, median of 7), the byte bound,
+    the plain version's ms and launches. Then the fused network ``net`` over
+    the middle chunk of ``rays`` and its ``eval_field`` (the KiloNeRF
+    teacher's call) with the kernel's encodings and with the plain
+    version's: the same bits. Returns the kernel's rows by shape."""
+    import torch.nn.functional as F
+
+    import xrnerf_torch.models.networks.nerf as nerf_mod
+    from xrnerf_torch.models.embedders.posenc import posenc_channels
+    from xrnerf_torch.ops.nerf_posenc import nerf_posenc, nerf_posenc_ref
+
+    L, Ld = net.multires, net.multires_dirs
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    out = {}
+    for n, s in POSENC_SHAPES:
+        pts = (torch.rand((n, s, 3), generator=gen, device=dev) * 2 - 1) * 6  # a chunk's samples lie within ~6
+        d = F.normalize(torch.randn((n, 3), generator=gen, device=dev), dim=-1)
+        before = nerf_posenc.launches
+        got, want = nerf_posenc(pts, d, L, Ld), nerf_posenc_ref(pts, d, L, Ld)
+        torch.cuda.synchronize()
+        if nerf_posenc.launches != before + 1:
+            raise AssertionError(f"nerf_posenc {n}x{s}: {nerf_posenc.launches - before} launches, expected 1")
+        differ = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+        if differ:
+            raise AssertionError(f"nerf_posenc {n}x{s}: {differ} values differ from the plain version's bits")
+        del got, want
+        ms = time_ms(lambda: nerf_posenc(pts, d, L, Ld))
+        plain_ms = time_ms(lambda: nerf_posenc_ref(pts, d, L, Ld), reps=5, warmup=1)
+        plain_launches = sum(c for _, _, c in device_times(lambda: nerf_posenc_ref(pts, d, L, Ld))[0])
+        rows = n * s
+        nbytes = 4 * (3 * rows + 3 * n + rows * (posenc_channels(3, L) + posenc_channels(3, Ld)))
+        bound_ms = nbytes / H100_HBM_BYTES_S * 1e3
+        row = {"phase": "kernel", "name": "nerf_posenc", "rays": n, "samples": s, "rows": rows, "bits_equal": True,
+               "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "plain_launches": plain_launches,
+               "library_ms": None, "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+               "gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms}
+        emit(row)
+        out[(n, s)] = row
+        del pts, d
+        torch.cuda.empty_cache()
+
+    start = (rays["rays_o"].shape[0] - chunk) // 2
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[start:start + chunk])).to(dev) for k, v in rays.items()}
+    tp = (torch.rand((POSENC_TEACHER_POINTS, 3), generator=gen, device=dev) * 2 - 1) * 1.5
+    td = F.normalize(torch.randn((POSENC_TEACHER_POINTS, 3), generator=gen, device=dev), dim=-1)
+
+    def run():
+        with torch.inference_mode():
+            return net(batch), net.eval_field(tp, td)
+
+    before = nerf_posenc.launches
+    got = run()
+    launches = nerf_posenc.launches - before
+    nerf_mod.nerf_posenc = nerf_posenc_ref
+    try:
+        want = run()
+    finally:
+        nerf_mod.nerf_posenc = nerf_posenc
+    frame_equal = all(torch.equal(got[0][k], want[0][k]) for k in want[0])
+    teacher_equal = all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    if launches != 3 or not (frame_equal and teacher_equal):
+        raise AssertionError(f"posenc_network: {launches} launches of row 8 (expected 3), the chunk's outputs equal "
+                             f"{frame_equal}, the teacher's {teacher_equal} with the plain encodings")
+    emit({"phase": "posenc_network", "chunk_rays": chunk, "teacher_points": POSENC_TEACHER_POINTS,
+          "launches": launches, "outputs_equal": frame_equal, "teacher_equal": teacher_equal})
+    return out
+
+
 def train_phase(model_cfg, cfg, work_dir):
     """The training slice through ``Trainer.run``; returns (its line, the
     trainer, launches by kernel on its main path)."""
     from xrnerf_torch import build_network
     from xrnerf_torch.core.trainer import Trainer
     from xrnerf_torch.ops.fused_nerf_mlp import fused_nerf_mlp_bwd, fused_nerf_mlp_fwd
+    from xrnerf_torch.ops.nerf_posenc import nerf_posenc
     from xrnerf_torch.utils import checkpoint as ckpt
 
     ds = SphereScene(N_RAND, cfg["data"]["near"], cfg["data"]["far"])
@@ -762,11 +844,12 @@ def train_phase(model_cfg, cfg, work_dir):
                        ckpt_interval=TRAIN_STEPS, seed=SEED, device="cuda", **kw)
 
     tr = trainer(TRAIN_STEPS, hooks=[rec])
-    fused_nerf_mlp_fwd.launches = fused_nerf_mlp_bwd.launches = 0  # the main path starts here
+    fused_nerf_mlp_fwd.launches = fused_nerf_mlp_bwd.launches = nerf_posenc.launches = 0  # the main path starts here
     reached = tr.run()
     torch.cuda.synchronize()
     launches = {"fused_nerf_mlp_fwd": fused_nerf_mlp_fwd.launches,
-                "fused_nerf_mlp_bwd": fused_nerf_mlp_bwd.launches}  # and ends here
+                "fused_nerf_mlp_bwd": fused_nerf_mlp_bwd.launches,
+                "nerf_posenc": nerf_posenc.launches}  # and ends here
     if reached != TRAIN_STEPS:
         raise AssertionError(f"training stopped at step {reached}")
     for name, got in launches.items():
@@ -1880,7 +1963,8 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
     two distillation cycles through the vanilla teacher (row 1), finetune
     training, card-vs-CPU gradients, then frames (pooled march, the budget
     compaction, culling, the other two marches). Returns row 1's launches in
-    the occupancy sweep and the distillation."""
+    the occupancy sweep and the distillation (row 8, the teacher's encoding,
+    launches as often: checked)."""
     import torch.nn.functional as F
 
     from xrnerf_torch import build_network, load_config
@@ -1904,7 +1988,7 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
     scene = KiloSphereScene(int(fin["data"]["N_rand"]), fin["data"]["near"], fin["data"]["far"])
     np.save(occ_path, scene.occupancy(KILO_OCC_RES, dmin, dmax))
     counters = kernel_counters()
-    fwd = counters["fused_nerf_mlp_fwd"]
+    fwd, enc = counters["fused_nerf_mlp_fwd"], counters["nerf_posenc"]
     dev = torch.device("cuda", 0)
 
     teacher = build_network(teacher_cfg, device="cuda")
@@ -1922,7 +2006,7 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
 
     # kilo_occupancy: the teacher's density over 768^3 points, through row 1
     t_phase = time.perf_counter()
-    fwd.launches = 0  # the main path starts here
+    fwd.launches = enc.launches = 0  # the main path starts here
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     occ_teacher = kn.build_occupancy_grid(density, dmin, dmax, res=(KILO_OCC_RES,) * 3, subsamples=KILO_OCC_SUB,
@@ -1930,8 +2014,9 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
     sweep_s = time.perf_counter() - t0
     occ_launches = fwd.launches  # and ends here
     planes = KILO_OCC_RES * KILO_OCC_SUB
-    if occ_launches < planes:
-        raise AssertionError(f"kilo_occupancy: {occ_launches} launches of row 1 for {planes} planes")
+    if occ_launches < planes or enc.launches != occ_launches:
+        raise AssertionError(f"kilo_occupancy: {occ_launches} launches of row 1 and {enc.launches} of row 8 "
+                             f"for {planes} planes")
     # the same sweep's cells of one coarse slab through the plain version of row 1, same weights, same encodings
     mlp = teacher.mlp_fine
     slab = KILO_OCC_RES // 2
@@ -1982,7 +2067,7 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
     dwork = os.path.join(work_dir, "distill")
     os.makedirs(dwork)
     tree = dict(dis["tree"])
-    fwd.launches = 0  # the main path starts here
+    fwd.launches = enc.launches = 0  # the main path starts here
     cycles = []
     for c in range(2):
         driver = DistillDriver(teacher_fn, dmin, dmax, work_dir=dwork, device="cuda", **tree)
@@ -2003,8 +2088,8 @@ def kilo_phases(work_dir, teacher_cfg, teacher_sd):
                        "error_quantiles": dict(zip(("p50", "p90", "p99", "max"),
                                                    np.quantile(errs, [0.5, 0.9, 0.99, 1.0]).tolist()))})
     distill_launches = fwd.launches  # and ends here (before the profile below)
-    if distill_launches < 4:  # two example draws a cycle, one teacher call each
-        raise AssertionError(f"kilo_distill: {distill_launches} launches of row 1")
+    if distill_launches < 4 or enc.launches != distill_launches:  # two example draws a cycle, one teacher call each
+        raise AssertionError(f"kilo_distill: {distill_launches} launches of row 1, {enc.launches} of row 8")
     # a first cycle cut to 10 Adam steps, by kernel group (the teacher's calls, then the fit)
     short = dict(tree, iters_per_batch=10)
 
@@ -3346,7 +3431,8 @@ def multi_phase(work_dir):
     finally:
         torch.distributed.destroy_process_group()
 
-    want = {"nerf": {"fused_nerf_mlp_fwd": 2 * MULTI_STEPS, "fused_nerf_mlp_bwd": 2 * MULTI_STEPS}, "kilo": {},
+    want = {"nerf": {"fused_nerf_mlp_fwd": 2 * MULTI_STEPS, "fused_nerf_mlp_bwd": 2 * MULTI_STEPS,
+                     "nerf_posenc": 2 * MULTI_STEPS}, "kilo": {},
             # per step one launch of each tiny MLP and one scatter, one more fused_mlp2 for the step-0 refresh
             "ngp": {"fused_mlp2_fwd": MULTI_STEPS + 1, "fused_mlp2_bwd": MULTI_STEPS, "fused_mlp3_fwd": MULTI_STEPS,
                     "fused_mlp3_bwd": MULTI_STEPS, "scatter_add_rows": MULTI_STEPS}}
@@ -4449,10 +4535,12 @@ def tools_phase(smi):
 
 
 def nerf_counters():
-    """The launch counters of the two vanilla-NeRF kernels."""
+    """The launch counters of the three vanilla-NeRF kernels."""
     from xrnerf_torch.ops import fused_nerf_mlp as fm
+    from xrnerf_torch.ops.nerf_posenc import nerf_posenc
 
-    return {"fused_nerf_mlp_fwd": fm.fused_nerf_mlp_fwd, "fused_nerf_mlp_bwd": fm.fused_nerf_mlp_bwd}
+    return {"fused_nerf_mlp_fwd": fm.fused_nerf_mlp_fwd, "fused_nerf_mlp_bwd": fm.fused_nerf_mlp_bwd,
+            "nerf_posenc": nerf_posenc}
 
 
 # what ``utils.device.configure_card`` promises: f32 matmul and convolutions, cuDNN's algorithm search on, bf16 and
@@ -4489,6 +4577,7 @@ def main() -> int:
     from xrnerf_torch.datasets.rays import get_rays_np, intrinsics_from_hwf, spherical_render_poses
     from xrnerf_torch.ops import build
     from xrnerf_torch.ops.fused_nerf_mlp import fused_nerf_mlp_fwd, pack_params
+    from xrnerf_torch.ops.nerf_posenc import nerf_posenc
     from xrnerf_torch.utils.device import configure_card
     from xrnerf_torch.utils.metrics import psnr
     from xrnerf_torch.utils.weights import state_dict_from_jax
@@ -4508,7 +4597,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    names = ["fused_nerf_mlp_fwd", "fused_nerf_mlp_bwd", "fused_mlp_fwd", "fused_mlp_bwd", "scatter_rows"]
+    names = ["fused_nerf_mlp_fwd", "fused_nerf_mlp_bwd", "fused_mlp_fwd", "fused_mlp_bwd", "scatter_rows", "nerf_posenc"]
     build.load_libraries(names)
     ptxas = {}
     for name in names:
@@ -4563,20 +4652,21 @@ def main() -> int:
     }
     per_frame = 2 * math.ceil(n_rays / chunk)  # coarse + fine per chunk
     points_per_ray = 2 * model_cfg["n_samples"] + model_cfg["n_importance"]  # 64 + (64 + 128)
-    fused_nerf_mlp_fwd.launches = 0  # the main path starts here
+    fused_nerf_mlp_fwd.launches = nerf_posenc.launches = 0  # the main path starts here
     frame_ms, out = [], None
     for i in range(3):  # one warm-up frame, two timed
-        before = fused_nerf_mlp_fwd.launches
+        before = (fused_nerf_mlp_fwd.launches, nerf_posenc.launches)
         t0 = time.perf_counter()
         out = tr.render_image(rays, H, W)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
-        got = fused_nerf_mlp_fwd.launches - before
-        if got != per_frame:
-            raise AssertionError(f"frame {i}: {got} kernel launches, expected {per_frame}")
+        got = (fused_nerf_mlp_fwd.launches - before[0], nerf_posenc.launches - before[1])
+        if got != (per_frame, per_frame):
+            raise AssertionError(f"frame {i}: {got} launches of rows 1 and 8, expected {per_frame} of each")
         if i:
             frame_ms.append(dt)
     main_path_launches = fused_nerf_mlp_fwd.launches  # the main path ends here
+    posenc_launches = nerf_posenc.launches
     for k in ("rgb", "disp", "acc"):
         if out[k].shape[:2] != (H, W) or not np.isfinite(out[k]).all():
             raise AssertionError(f"{k}: shape {out[k].shape} or non-finite values")
@@ -4604,6 +4694,8 @@ def main() -> int:
 
     # profiled frame (after the main path's counts were read)
     emit(profile_device(lambda: tr.render_image(rays, H, W), ms_frame, "profile"))
+    # 5b. row 8 against its plain version, and the network's bits with either encoding
+    posenc_rows = posenc_kernel_phase(dev, tr.network, rays, chunk)
     del tr, out
     torch.cuda.empty_cache()
 
@@ -4740,6 +4832,14 @@ def main() -> int:
            **{k: rows[name][262_144][k] for k in keys}}
           for name, line, rows in (("fused_mlp2_fwd", 64, tiny_rows), ("fused_mlp2_bwd", 77, tiny_bwd_rows),
                                    ("fused_mlp3_fwd", 184, tiny_rows), ("fused_mlp3_bwd", 202, tiny_bwd_rows))),
+        {"name": "nerf_posenc", "route": "cuda", "source": "xrnerf_torch/csrc/nerf_posenc.cu",
+         "replaces": "none (XLA fuses posenc_fast, xrnerf_tpu/models/embedders/posenc.py)",
+         # the KiloNeRF teacher launches row 8 once with each launch of row 1 (kilo_phases checks it)
+         "launches": posenc_launches + train_launches["nerf_posenc"] + kilo_launches + multi["launches"]["nerf_posenc"]
+         + files["launches"]["nerf_posenc"] + captures["launches"]["nerf_posenc"] + quality["launches"]["nerf_posenc"],
+         "max_abs_err": 0.0, **{k: posenc_rows[(16_384, 192)][k] for k in keys},
+         "other_shapes": {f"{n}x{s}": {k: r[k] for k in ("ms", "plain_ms", "plain_launches", "bound_ms")}
+                          for (n, s), r in posenc_rows.items() if (n, s) != (16_384, 192)}},
         {"name": "scatter_add_rows", "route": "cuda", "source": "xrnerf_torch/csrc/scatter_rows.cu",
          "replaces": "xrnerf_tpu/ops/pallas/scatter_rows.py:62",
          "launches": ngp_train_launches["scatter_add_rows"] + multi["launches"]["scatter_add_rows"]

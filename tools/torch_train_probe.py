@@ -3,13 +3,13 @@
 
     python3 tools/torch_train_probe.py          # from the repo root
 
-1. posenc A/B: ``posenc_fast`` as the port first wrote it (its constants
-   made into device tensors with ``torch.tensor``, one synchronising
-   host-to-device copy each, 11 per call) against the port's version
-   (Python-float constants). Checks that both give the same bits, then
-   times the train step (``N_rand`` 4096, 64 + 128 samples, fused MLP) in
-   the order old, new, new, old: with batches staged on the card before
-   timing, and through ``Trainer.run`` with its prefetch thread.
+1. encodings A/B: the fused network's encode stage through its plain
+   version (``ops/nerf_posenc.py:nerf_posenc_ref``, ``posenc_fast``'s chain
+   of elementwise kernels) against the kernel (``nerf_posenc``, row 8).
+   Checks that both give the same bits, then times the train step
+   (``N_rand`` 4096, 64 + 128 samples, fused MLP) in the order plain,
+   kernel, kernel, plain: with batches staged on the card before timing,
+   and through ``Trainer.run`` with its prefetch thread.
 2. host trace: three steady steps with staged batches under
    ``torch.profiler`` (CPU and CUDA activity): the host calls that take the
    most CPU time, the count of ``cudaStreamSynchronize`` and the ops each
@@ -37,26 +37,8 @@ import chip_smoke as C  # noqa: E402
 import xrnerf_torch.models.networks.nerf as nerf_mod  # noqa: E402
 from xrnerf_torch import build_network, load_config  # noqa: E402
 from xrnerf_torch.core.trainer import Trainer  # noqa: E402
-from xrnerf_torch.models.embedders import posenc as posenc_mod  # noqa: E402
 from xrnerf_torch.ops import build  # noqa: E402
-
-
-def _sin_2pi_device_consts(t):
-    t = t - torch.round(t)
-    th = t * torch.tensor(posenc_mod._TWO_PI, dtype=t.dtype, device=t.device)
-    t2 = th * th
-    c0, c1, c2, c3 = (torch.tensor(c, dtype=t.dtype, device=t.device) for c in posenc_mod._SIN_C)
-    return th * (c0 + t2 * (c1 + t2 * (c2 + t2 * c3)))
-
-
-def posenc_fast_device_consts(x, num_freqs, include_input=True):
-    """``posenc_fast`` with its constants as device tensors (the old version)."""
-    turns = 2.0 ** torch.arange(num_freqs, dtype=x.dtype, device=x.device) * torch.tensor(
-        posenc_mod._INV_2PI, dtype=x.dtype, device=x.device)
-    tb = x[..., None, :] * turns[:, None]
-    enc = torch.stack([_sin_2pi_device_consts(tb), _sin_2pi_device_consts(tb + 0.25)], dim=-2)
-    enc = enc.reshape(*x.shape[:-1], -1)
-    return torch.cat([x, enc], dim=-1) if include_input else enc
+from xrnerf_torch.ops.nerf_posenc import nerf_posenc, nerf_posenc_ref  # noqa: E402
 
 
 def main() -> int:
@@ -65,23 +47,23 @@ def main() -> int:
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    build.load_libraries(["fused_nerf_mlp_fwd", "fused_nerf_mlp_bwd"])
+    build.load_libraries(["fused_nerf_mlp_fwd", "fused_nerf_mlp_bwd", "nerf_posenc"])
     cfg = load_config(os.path.join(ROOT, "configs", "nerf", "nerf_blender.py"), dataname="lego")
     model_cfg = dict(cfg["model"], fused=True)
     ds = C.SphereScene(C.N_RAND, cfg["data"]["near"], cfg["data"]["far"])
-    new = nerf_mod.posenc_fast
-    x = (torch.rand(1 << 20, 3, device="cuda") * 2 - 1) * 4
-    same = all(torch.equal(posenc_fast_device_consts(x, n), new(x, n)) for n in (4, 10))
+    x = (torch.rand(4096, 192, 3, device="cuda") * 2 - 1) * 4
+    d = torch.nn.functional.normalize(torch.randn(4096, 3, device="cuda"), dim=-1)
+    same = all(torch.equal(a, b) for a, b in zip(nerf_posenc(x, d, 10, 4), nerf_posenc_ref(x, d, 10, 4)))
     if not same:
-        raise AssertionError("the two posenc_fast versions give different bits")
+        raise AssertionError("the kernel's encodings differ from the plain version's bits")
 
     def trainer():
         return Trainer(build_network(model_cfg), ds, optimizer=cfg["optimizer"], work_dir=None,
                        max_iters=30, ckpt_interval=0, log_interval=10, device="cuda")
 
     runs = []
-    for tag in ("device_consts", "python_floats", "python_floats", "device_consts"):
-        nerf_mod.posenc_fast = posenc_fast_device_consts if tag == "device_consts" else new
+    for tag in ("plain", "kernel", "kernel", "plain"):
+        nerf_mod.nerf_posenc = nerf_posenc_ref if tag == "plain" else nerf_posenc
         tr = trainer()
         batches = [tr._put_batch(ds.train_batch(s)) for s in range(13)]
         for s in range(3):
@@ -102,7 +84,7 @@ def main() -> int:
         print(json.dumps(runs[-1]), flush=True)
         del tr
         torch.cuda.empty_cache()
-    nerf_mod.posenc_fast = new
+    nerf_mod.nerf_posenc = nerf_posenc
     print(json.dumps({"phase": "posenc_ab", "bitwise_equal": same, "runs": runs}), flush=True)
 
     tr = trainer()

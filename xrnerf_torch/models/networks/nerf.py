@@ -16,10 +16,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.nerf_posenc import nerf_posenc
 from ...registry import NETWORKS
 from ...utils.metrics import img2mse, mse2psnr
 from ...utils.spans import span
-from ..embedders.posenc import posenc, posenc_channels, posenc_fast
+from ..embedders.posenc import posenc, posenc_channels
 from ..fields.nerf_mlp import NerfMLP
 from ..renders.volume import volume_render
 from ..samplers.pdf import sample_pdf
@@ -82,17 +83,19 @@ class NerfNetwork(nn.Module):
     def _eval_mlp(self, mlp: NerfMLP, pts: torch.Tensor, viewdirs: torch.Tensor):
         """Encode + run MLP over [N, S, 3] pts with per-ray viewdirs [N, 3]."""
         n, s, _ = pts.shape
-        # The fused path consumes encodings in bf16, where posenc_fast's
-        # ~1e-3 error is invisible.
-        enc = posenc_fast if self.fused else posenc
         with span("xrnerf_torch.nerf.encode"):
-            pts_enc = enc(pts.reshape(n * s, 3), self.multires)
-            views_enc = None
-            if self.use_viewdirs:
-                # each ray's encoding for its s samples; expand + reshape, since
-                # repeat_interleave sizes its output with a device-to-host sync
-                views_enc = enc(viewdirs, self.multires_dirs)
-                views_enc = views_enc[:, None].expand(n, s, views_enc.shape[-1]).reshape(n * s, -1)
+            if self.fused:
+                # posenc_fast of both inputs, one kernel on the card (ops/nerf_posenc.py);
+                # the fused MLP consumes them in bf16, where its ~1e-3 error is invisible
+                pts_enc, views_enc = nerf_posenc(pts, viewdirs, self.multires, self.multires_dirs)
+            else:
+                pts_enc = posenc(pts.reshape(n * s, 3), self.multires)
+                views_enc = None
+                if self.use_viewdirs:
+                    # each ray's encoding for its s samples; expand + reshape, since
+                    # repeat_interleave sizes its output with a device-to-host sync
+                    views_enc = posenc(viewdirs, self.multires_dirs)
+                    views_enc = views_enc[:, None].expand(n, s, views_enc.shape[-1]).reshape(n * s, -1)
         with span("xrnerf_torch.nerf.mlp"):
             rgb, sigma = mlp(pts_enc, views_enc)
         return rgb.reshape(n, s, 3), sigma.reshape(n, s)
