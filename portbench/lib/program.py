@@ -2,113 +2,111 @@
 
 The port records spans of its own while a profiler runs
 (``xrnerf_torch.<stage>``, ``xrnerf_torch/utils/spans.py``). ``summarise``
-reads the same raw events as ``lib/trace.py:summarise`` and sums each span
+reads the host side that ``lib/trace.py:host`` parses (the same for both
+reductions, and the one rule, ``Host.program_span_at``, for which span holds
+a moment) and sums each span
 under its name: its count and host time; the device time of the operations
 whose launch lies in it as the innermost program span of the launching
 thread, or in an autograd node whose forward op was recorded there (the
-rule of ``trace.py``'s layers, keyed by the innermost program span); and the
+rule of ``trace.py``'s layers, keyed by the innermost program span); the
 idle gaps of ``SHORT_GAP_NS`` or more whose middle lies in it, as the
-innermost program span of the slice's thread.
+innermost program span of the slice's thread (``idle_s``: where the host
+was while the card waited); and those that follow an operation launched in
+it (``idle_after_s``: after whose work the card waited, read from the
+card's own timeline).
 
-No run of the benchmark calls it: a run's slices keep only their
-``TraceSummary``, so a per-layer metric that reads the spans needs
-``trace.py`` or ``mixes/common.py:Slice.summary`` to carry this reduction
-(PERF.md, §7). ``tools/spans.py`` runs a cell with it.
+A traced run keeps it on its host-op slice's summary
+(``TraceSummary.program``, ``mixes/common.py:Slice.summary``), where the
+per-layer metrics' readers find it through :func:`span_ms`.
 """
 
 from __future__ import annotations
 
-import collections
+import bisect
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
-from .trace import EVALUATE, RUNTIME_CALL, SHORT_GAP_NS, SLICE, _Enclosing, _intervals_union, _is_device
-
-PROGRAM = "xrnerf_torch."
+from .trace import EVALUATE, PROGRAM, SHORT_GAP_NS, Host, host
 
 
 @dataclass
 class ProgramSpans:
     device_s: float  # summed device time of every operation in the slice
     idle_s: float  # gaps of SHORT_GAP_NS or more in the slice
-    # per span: count, host_s, device_s (forward and backward), idle_s
+    # per span: count, host_s, device_s (forward and backward), idle_s, idle_after_s
     spans: Dict[str, Dict[str, float]] = field(default_factory=dict)
 
 
 def summarise(kineto_events) -> Optional[ProgramSpans]:
     """The program's spans in the slice, or None when the trace holds no
     slice or no device activity inside it."""
-    cpu, dev = [], []
-    for ev in kineto_events:
-        (dev if _is_device(ev) else cpu).append(ev)
-    spans_named = {ev.name() for ev in cpu if not RUNTIME_CALL.match(ev.name())}
-    dev = [ev for ev in dev if ev.name() not in spans_named]
-    slices = [ev for ev in cpu if ev.name() == SLICE]
-    if not slices or not dev:
-        return None
-    t0, t1 = slices[0].start_ns(), slices[0].start_ns() + slices[0].duration_ns()
-    main_tid = slices[0].start_thread_id()
+    h = host(kineto_events)
+    return summarise_host(h) if h is not None else None
 
-    # every host op (two can share a correlation id, so spans are read from all of them), launches by correlation
-    by_corr, launches, per_thread = {}, {}, collections.defaultdict(list)
-    spans, prog_spans = {}, collections.defaultdict(list)
-    for ev in cpu:
-        name, s = ev.name(), ev.start_ns()
-        e, tid = s + ev.duration_ns(), ev.start_thread_id()
-        if RUNTIME_CALL.match(name):
-            launches[ev.correlation_id()] = (s, tid)
-            continue
-        rec = (name, s, e, tid, ev.sequence_nr(), ev.fwd_thread_id())
-        by_corr[ev.correlation_id()] = rec
-        per_thread[tid].append((s, e, rec))
-        if name.startswith(PROGRAM) and t0 <= s < t1:
-            p = spans.setdefault(name, {"count": 0, "host_s": 0.0, "device_s": 0.0, "idle_s": 0.0})
+
+def summarise_host(h: Host) -> Optional[ProgramSpans]:
+    """:func:`summarise` of a trace whose host side is parsed."""
+    spans = {}
+    for at in h.program.values():
+        for s, e, name in at.ops:
+            p = spans.setdefault(name, {"count": 0, "host_s": 0.0, "device_s": 0.0, "idle_s": 0.0, "idle_after_s": 0.0})
             p["count"] += 1
-            p["host_s"] += (min(e, t1) - s) / 1e9
-            prog_spans[tid].append((s, e, name))
-    prog_at = {tid: _Enclosing(sp) for tid, sp in prog_spans.items()}
-    enclosing = {tid: _Enclosing(ops) for tid, ops in per_thread.items()}
+            p["host_s"] += (min(e, h.t1) - s) / 1e9
     # the innermost program span of every op with a sequence number: its backward node's span
     prog_seq = {}
-    for tid, at in prog_at.items():
-        for s, _, rec in per_thread[tid]:
+    for tid in h.program:
+        for s, _, rec in h.per_thread[tid]:
             if rec[4] is not None and rec[4] >= 0:
-                name = at.innermost(s)
+                name = h.program_span_at(s, tid)
                 if name is not None:
                     prog_seq[tid, rec[4]] = name
 
     def span_at(t: int, tid: int) -> Optional[str]:
-        name = prog_at[tid].innermost(t) if tid in prog_at else None
-        if name is None and tid in enclosing:
-            node = enclosing[tid].innermost(t, lambda r: r[0].startswith(EVALUATE))
+        name = h.program_span_at(t, tid)
+        if name is None and tid in h.enclosing:
+            node = h.enclosing[tid].innermost(t, lambda r: r[0].startswith(EVALUATE))
             name = prog_seq.get((node[5], node[4])) if node is not None else None
         return name
 
-    busy_iv, device_ns = [], 0
-    for ev in dev:
-        s, e = ev.start_ns(), ev.start_ns() + ev.duration_ns()
-        if e <= t0 or s >= t1:
-            continue
-        s, e = max(s, t0), min(e, t1)
+    busy_iv, device_ns, ended = [], 0, []
+    for ev, s, e in h.in_slice():
         busy_iv.append((s, e))
         device_ns += e - s
-        at = launches.get(ev.correlation_id())
-        if at is None:
-            rec = by_corr.get(ev.linked_correlation_id())
-            at = (rec[1], rec[3]) if rec is not None else None
+        at = h.launched_at(ev)
         name = span_at(*at) if at is not None else None
+        ended.append((e, name))
         if name is not None:
             spans[name]["device_s"] += (e - s) / 1e9
     if not busy_iv:
         return None
 
+    ended.sort(key=lambda x: x[0])
+    ends = [e for e, _ in ended]
     idle_ns = 0
-    edges = [t0] + [x for iv in _intervals_union(busy_iv) for x in iv] + [t1]
-    for a, b in zip(edges[0::2], edges[1::2]):
+    for a, b in h.gaps(busy_iv):
         if b - a < SHORT_GAP_NS:
             continue
         idle_ns += b - a
-        name = prog_at[main_tid].innermost((a + b) // 2) if main_tid in prog_at else None
+        name = h.program_span_at((a + b) // 2)
         if name is not None:
             spans[name]["idle_s"] += (b - a) / 1e9
+        i = bisect.bisect_right(ends, a) - 1  # the operation whose end opens the gap
+        if i >= 0 and ended[i][1] is not None:
+            spans[ended[i][1]]["idle_after_s"] += (b - a) / 1e9
     return ProgramSpans(device_s=device_ns / 1e9, idle_s=idle_ns / 1e9, spans=spans)
+
+
+def units(run) -> int:
+    """The traced slice's steps or frames, by the traffic's kind."""
+    return run.counters["slice_steps" if run.cell.traffic["kind"] == "train" else "slice_frames"]
+
+
+def span_ms(run, name: str, key: str) -> Optional[float]:
+    """``key`` (``host_s``, ``device_s``, ``idle_s`` or ``idle_after_s``) of the program span
+    ``name`` in the run's host-op slice, in ms per traced step or frame;
+    None where the run recorded no such span."""
+    p = run.summary.program if run.summary is not None else None
+    if p is None or name not in p.spans:
+        return None
+    return 1e3 * p.spans[name][key] / units(run)
+

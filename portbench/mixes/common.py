@@ -11,6 +11,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..lib import program as lprogram
 from ..lib import trace as ltrace
 
 
@@ -40,7 +41,7 @@ class RunRecord:
     failed: int = 0
     end_to_end: Dict[str, float] = field(default_factory=dict)
     counters: Dict[str, float] = field(default_factory=dict)
-    summary: Optional[ltrace.TraceSummary] = None  # the traced slice with host ops
+    summary: Optional[ltrace.TraceSummary] = None  # the traced slice with host ops, and the program's spans in it
     idle: Optional[ltrace.TraceSummary] = None  # the device-only slice after it
     checks: Dict[str, float] = field(default_factory=dict)
     memory_peak_bytes: int = 0
@@ -103,7 +104,11 @@ class Slice:
             return None
         if self.device_only:
             return ltrace.device_summary(self.events, self.t1 - self.t0)
-        return ltrace.summarise(self.events, layers)
+        h = ltrace.host(self.events)
+        summary = ltrace.summarise_host(h, layers) if h is not None else None
+        if summary is not None:
+            summary.program = lprogram.summarise_host(h)
+        return summary
 
 
 def traced_slices(device: str, start: int, length: int):

@@ -1,6 +1,8 @@
 """Each cell's files load by name, and BENCHMARK.json keeps the contract's
-format: as committed, and with the entries that wait under
-``portbench/later/`` added."""
+format: as committed, with the entries that wait under ``portbench/later/``
+added, and as the PR that adds the waiting cell leaves it: the cell's
+entries moved into BENCHMARK.json, with ``later/`` left as it is and with
+``later/`` removed."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ import importlib
 import json
 import os
 import re
+import shutil
 
 import pytest
 
@@ -15,7 +18,25 @@ from portbench import run
 from portbench.tests import tiny
 
 ROOT = run.ROOT
-BENCHES = {"committed": run.load_benchmark(ROOT), "with_later": tiny.bench()}
+ABSENT = os.path.join(ROOT, "portbench", "later_removed")  # no such directory: later/ once a PR removes it
+
+
+def waiting_moved(committed: dict) -> dict:
+    """``committed`` with the entries under ``later/`` moved in, as the PR
+    that adds a waiting cell moves them: a new cell takes the bounds the
+    benchmark has, so ``frame_ms.ngp`` gets ``frame_ms_p95.nerf``'s 0.03,
+    not the 0.07 parked with it."""
+    out = tiny.bench(committed)
+    for m in out["end_to_end"]:
+        if m["name"] == "frame_ms.ngp" and m not in committed["end_to_end"]:
+            m["bound"] = 0.03
+    return out
+
+
+COMMITTED = run.load_benchmark(ROOT)
+MOVED = waiting_moved(COMMITTED)
+BENCHES = {"committed": COMMITTED, "with_later": tiny.bench(), "moved": tiny.bench(MOVED),
+           "moved_later_removed": tiny.bench(MOVED, later=ABSENT)}
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [(k, w["name"]) for k, b in BENCHES.items() for w in b["workloads"]]
@@ -96,3 +117,21 @@ def test_every_config_is_used_and_files_are_distinct(bench):
     assert len({c["file"] for c in bench["configs"]}) == len(bench["configs"])
     pairs = [(w["config"], w["traffic"]) for w in bench["workloads"]]
     assert len(pairs) == len(set(pairs))
+
+
+def test_a_waiting_cell_moves_by_additions_alone(tmp_path):
+    """Moving a waiting cell's entries into BENCHMARK.json edits no file of
+    the benchmark: ``later/``'s entries join only where BENCHMARK.json has
+    none of the same name, so the benchmark reads the same, each entry once,
+    whether ``later/`` stays or goes."""
+    assert not os.path.exists(ABSENT)
+    present = str(tmp_path / "later")
+    if os.path.isdir(tiny.LATER):
+        shutil.copytree(tiny.LATER, present)
+    assert tiny.bench(MOVED, later=present) == tiny.bench(MOVED, later=ABSENT) == MOVED
+    assert tiny.bench(COMMITTED, later=ABSENT) == COMMITTED
+    for group in tiny.GROUPS:
+        assert [e["name"] for e in COMMITTED[group]] == [e["name"] for e in MOVED[group]][:len(COMMITTED[group])]
+    assert {w["name"] for w in BENCHES["with_later"]["workloads"]} <= {w["name"] for w in MOVED["workloads"]}
+    # a cell's frame time, once committed, has a bound no looser than the benchmark's p95
+    assert all(m["bound"] <= 0.03 for m in COMMITTED["end_to_end"] if m["name"].startswith("frame_ms."))

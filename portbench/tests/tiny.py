@@ -5,10 +5,14 @@ with the cells that wait under ``portbench/later/`` (:func:`bench`)."""
 
 from __future__ import annotations
 
+import copy
 import json
 import os
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+LATER = os.path.join(ROOT, "portbench", "later")  # entries of cells that wait
+GROUPS = ("configs", "workloads", "end_to_end", "per_layer")
 
 
 def config(name: str) -> dict:
@@ -16,17 +20,23 @@ def config(name: str) -> dict:
         return json.load(f)
 
 
-def bench() -> dict:
-    """BENCHMARK.json with the entries of each file under ``portbench/later/``
-    added, as a later PR adds them."""
-    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
-        out = json.load(f)
-    later = os.path.join(ROOT, "portbench", "later")
+def bench(committed: Optional[dict] = None, later: str = LATER) -> dict:
+    """BENCHMARK.json (or ``committed``) with the entries of each file under
+    ``later`` that it has no entry of the same name for in the same group,
+    as a later PR adds them; the benchmark as it is where ``later`` is
+    absent (git keeps no empty directory)."""
+    if committed is None:
+        with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+            committed = json.load(f)
+    out = copy.deepcopy(committed)
+    if not os.path.isdir(later):
+        return out
     for name in sorted(os.listdir(later)):
         with open(os.path.join(later, name)) as f:
             part = json.load(f)
-        for key in ("configs", "workloads", "end_to_end", "per_layer"):
-            out[key] = out[key] + part.get(key, [])
+        for key in GROUPS:
+            have = {e["name"] for e in out[key]}
+            out[key] += [e for e in part.get(key, []) if e["name"] not in have]
     return out
 
 

@@ -4,10 +4,11 @@
     python3 portbench/tools/spans.py --workload <cell> --seeds 101,102 [--seconds 30]
 
 For each seed a whole traced run of the cell (as ``run.py --trace 1``) in
-this one process, whose host-op slice is also reduced by
-``lib/program.py``. One JSON line per run: the run's result line
+this one process; its host-op slice's summary carries the program's spans
+(``lib/program.py``). One JSON line per run: the run's result line
 (``line``), and per traced step or frame (``per``) each ``xrnerf_torch.*``
-span's count and its host, device and idle ms; ``covered``, the spans' share
+span's count, its host and device ms, and the idle ms with the host in it
+and after its operations; ``covered``, the spans' share
 of the slice's device time; ``mlp_minus_layer_ms``, the device time of
 ``xrnerf_torch.nerf.mlp`` less that of the benchmark's own span around
 ``NerfMLP.forward`` (0 when both read the same operations); and the idle ms
@@ -29,43 +30,31 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspa
 
 from portbench import run  # noqa: E402
 from portbench.lib import program  # noqa: E402
-from portbench.mixes import common  # noqa: E402
 
 
 def traced(workload: str, seed: int, seconds: float, device: str = "cuda", overrides: Optional[Dict] = None,
            cache_root: Optional[str] = None):
     """(the run's record, its result line, the program's spans of its
     host-op slice or None)."""
-    got = []
-    summary = common.Slice.summary
-
-    def with_program(self, layers):
-        if not self.device_only and self.events is not None:
-            got.append(program.summarise(self.events))
-        return summary(self, layers)
-
-    common.Slice.summary = with_program
-    try:
-        rec, line = run.run_cell(workload, seed, seconds, True, device, overrides=overrides, cache_root=cache_root)
-    finally:
-        common.Slice.summary = summary
-    return rec, line, got[0] if got else None
+    rec, line = run.run_cell(workload, seed, seconds, True, device, overrides=overrides, cache_root=cache_root)
+    return rec, line, rec.summary.program if rec.summary is not None else None
 
 
 def per_unit(rec, spans: program.ProgramSpans) -> Dict:
-    units = rec.counters["slice_steps" if rec.cell.traffic["kind"] == "train" else "slice_frames"]
+    units = program.units(rec)
     ms = 1e3 / units
     s = rec.summary
     mlp = spans.spans.get("xrnerf_torch.nerf.mlp", {}).get("device_s", 0.0)
     idle_in = sum(v["idle_s"] for v in spans.spans.values())
     return {
         "spans": {name: {"count": v["count"] / units, "host_ms": v["host_s"] * ms, "device_ms": v["device_s"] * ms,
-                         "idle_ms": v["idle_s"] * ms} for name, v in sorted(spans.spans.items())},
+                         "idle_ms": v["idle_s"] * ms, "idle_after_ms": v["idle_after_s"] * ms}
+                  for name, v in sorted(spans.spans.items())},
         "device_ms": spans.device_s * ms,
         "covered": sum(v["device_s"] for v in spans.spans.values()) / spans.device_s,
-        "mlp_minus_layer_ms": (mlp - s.layer_device_s.get("nerf_mlp", 0.0)) * ms if s is not None else None,
+        "mlp_minus_layer_ms": (mlp - s.layer_device_s.get("nerf_mlp", 0.0)) * ms,
         "idle_outside_spans_ms": (spans.idle_s - idle_in) * ms,
-        "host_no_op_ms": dict(s.idle_gaps).get("host:no_op", 0.0) * ms if s is not None else None,
+        "host_no_op_ms": dict(s.idle_gaps).get("host:no_op", 0.0) * ms,
     }
 
 
